@@ -1,0 +1,192 @@
+"""Configuration dataclasses of the synthesis chain.
+
+A stdlib-only copy of the part of ``ttsx.core.config`` that text->waveform
+synthesis reads: ``S4Config``, ``AcousticConfig``, ``RefinerConfig``,
+``VocoderConfig`` and a ``TTSXConfig`` root holding those three. Field
+names and defaults are the reference's, so a dict written by
+``ttsx.core.config.to_dict`` loads here through ``from_dict`` (keys this
+tree does not carry are ignored) and back.
+
+In this package ``VocoderConfig.use_pallas_upsample`` and
+``use_pallas_resblock_stack`` select the hand-written CUDA kernels
+(``ttsx_torch/ops``) in place of the plain PyTorch path; the names are
+kept so configs stay interchangeable.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field, fields, is_dataclass
+from typing import Any, Tuple
+
+
+@dataclass(frozen=True)
+class S4Config:
+    heads: int = 4
+    l_max: int = 1024
+    rank: int = 1
+    dropout: float = 0.1
+    norm_groups: int = 8
+    causal: bool = False
+    # 'auto' and 'fft' run the rFFT long convolution; 'scan' and 'pallas'
+    # are not ported yet (ROADMAP Queue 2, K4).
+    kernel_mode: str = "auto"
+
+
+@dataclass(frozen=True)
+class AcousticConfig:
+    text_emb_dim: int = 384
+    cond_dim: int = 18          # 5 prosody scalars + 13 mfcc
+    speaker_dim: int = 16
+    emotion_dim: int = 6
+    hidden_channels: int = 256
+    mel_dim: int = 80
+    conformer_layers: int = 6
+    attention_heads: int = 4
+    transformer_dim: int = 512  # conformer ffn width
+    kernel_size: int = 5
+    num_layers: int = 4         # FiLM residual conv blocks
+    dropout: float = 0.1
+    diffusion_steps: int = 10
+    base_sd_prob: float = 0.1
+    layer_scale_init: float = 1e-4
+    prune_ratio: float = 0.2
+    ci_latency_factor: float = 20.0
+    profile: bool = False
+    w_mel: float = 1.0
+    w_mse: float = 1.0
+    w_disc: float = 0.5
+    w_diff: float = 1.0
+    w_emo: float = 0.1
+
+
+@dataclass(frozen=True)
+class RefinerConfig:
+    bands: Tuple[int, ...] = (24, 28, 28)
+    levels: int = 2
+    flows: int = 3
+    cond_dim: int = 256
+    time_dim: int = 256
+    beta_hidden: int = 64
+    hidden_channels: int = 512
+    hsf_hidden: int = 256
+    hsf_layers: int = 4
+    hsf_kernel: int = 5
+    style_dim: int = 128
+    num_styles: int = 100
+    vq_dims: Tuple[int, ...] = (80, 80, 80)
+    vq_codes: Tuple[int, ...] = (512, 512, 512)
+    cnf_dim: int = 80
+    s4: S4Config = field(default_factory=lambda: S4Config(
+        heads=4, l_max=1024, dropout=0.1, causal=True, norm_groups=4))
+    sde_steps: int = 8
+    sde_sigma: float = 0.5
+    max_avg_time: float = 0.5
+    benchmark_runs: int = 5
+    profile: bool = False
+
+    def __post_init__(self):
+        if sum(self.bands) != self.cnf_dim:
+            raise ValueError(
+                f"Sum of bands {sum(self.bands)} != cnf_dim {self.cnf_dim}")
+        if self.benchmark_runs < 1:
+            raise ValueError("benchmark_runs must be >= 1")
+        if len(self.vq_dims) != len(self.vq_codes):
+            raise ValueError("vq_dims and vq_codes length must match")
+
+
+@dataclass(frozen=True)
+class VocoderConfig:
+    channels: int = 80
+    cond_dim: int = 128
+    style_dim: int = 128
+    hidden_dim: int = 256
+    num_bands: int = 4
+    upsample_factors: Tuple[int, ...] = (8, 8, 2, 2)
+    res_dilations: Tuple[int, ...] = (1, 3, 5)
+    disc_periods: Tuple[int, ...] = (2, 3, 5, 7, 11)
+    disc_kernel_sizes: Tuple[int, ...] = (15, 41, 41)
+    disc_ch_growth: int = 4
+    sr: int = 22050
+    hop_length: int = 256
+    stft_sizes: Tuple[int, ...] = (512, 1024, 2048)
+    stft_log_mag: bool = True
+    num_style_tokens: int = 10
+    dropout_prob: float = 0.1
+    r1_gamma: float = 10.0
+    r1_interval: int = 16
+    lambda_stft: float = 2.0
+    lambda_pitch: float = 1.0
+    lambda_dur: float = 1.0
+    lambda_fm: float = 2.0
+    lambda_energy: float = 0.0
+    # absolute-scale conditioning: the generator takes per-utterance mel
+    # stats [mean || std] ([B, 2*channels]) through a `scale_proj` Dense
+    scale_cond: bool = False
+    ema_decay: float = 0.999
+    # True: the ConvT upsample runs the CUDA kernel K1 (ops/upsample.py)
+    use_pallas_upsample: bool = False
+    # True: each stage's FiLM resblocks run as one CUDA kernel K2
+    # (ops/resblock_stack.py)
+    use_pallas_resblock_stack: bool = False
+    band_tp: bool = False
+    remat: bool = False
+
+
+@dataclass(frozen=True)
+class TTSXConfig:
+    acoustic: AcousticConfig = field(default_factory=AcousticConfig)
+    refiner: RefinerConfig = field(default_factory=RefinerConfig)
+    vocoder: VocoderConfig = field(default_factory=VocoderConfig)
+
+
+def to_dict(cfg: Any) -> Any:
+    if is_dataclass(cfg):
+        return {f.name: to_dict(getattr(cfg, f.name)) for f in fields(cfg)}
+    if isinstance(cfg, (list, tuple)):
+        return [to_dict(v) for v in cfg]
+    return cfg
+
+
+def from_dict(cls, data: dict):
+    kwargs = {}
+    for f in fields(cls):
+        if f.name not in data:
+            continue
+        v = data[f.name]
+        default = (f.default_factory() if f.default_factory
+                   is not dataclasses.MISSING else f.default)
+        if is_dataclass(default):
+            kwargs[f.name] = from_dict(type(default), v)
+        elif isinstance(default, tuple) and isinstance(v, list):
+            kwargs[f.name] = tuple(v)
+        else:
+            kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+def tts_cfg(levels: int = 2) -> TTSXConfig:
+    """The chain the zoo was trained with (``ttsx.eval.parity._tts_cfg``)."""
+    return TTSXConfig(
+        acoustic=AcousticConfig(text_emb_dim=256, speaker_dim=16),
+        refiner=RefinerConfig(
+            levels=levels,
+            s4=S4Config(heads=4, l_max=1024, causal=True, norm_groups=4,
+                        dropout=0.1)),
+        vocoder=VocoderConfig(),
+    )
+
+
+def zoo_cfg(kernels: bool = True, vocoder_overrides: dict | None = None
+            ) -> TTSXConfig:
+    """``tts_cfg()`` plus the zoo.json vocoder overrides (``scale_cond``,
+    ``lambda_energy``), with both CUDA kernel flags set to ``kernels``.
+
+    The flags change no parameter, so the zoo weights load either way."""
+    cfg = tts_cfg()
+    ov = {"scale_cond": True, "lambda_energy": 1.0}
+    if vocoder_overrides:
+        known = {f.name for f in fields(VocoderConfig)}
+        ov.update({k: v for k, v in vocoder_overrides.items() if k in known})
+    ov.update(use_pallas_upsample=kernels, use_pallas_resblock_stack=kernels)
+    return dataclasses.replace(
+        cfg, vocoder=dataclasses.replace(cfg.vocoder, **ov))
