@@ -13,6 +13,11 @@ Run from the root of a checkout. Phases, one JSON line each:
    shapes of one 10 s request (864 mel frames, 4 bands folded into the
    batch: B*4 = 4) and of the serving bucket (4 requests: B*4 = 16),
    within stated tolerances.
+3b. mel_frontend: K3 (the collator's log-mel) against its plain version
+   on a batch of 16 wavs of 1.5-4.4 s (tones and noise, zero-padded to
+   the trainer's largest bucket, 98,304 samples) and on one 10 s clip:
+   the worst error overall within a stated tolerance, and on the frames
+   that read only zeros (reflect padding included) within 1e-5.
 4. serve: ``serve_from_zoo(device="cuda", bf16=False, max_batch=4,
    frames=864)`` on the checked-in zoo model serves 3 requests (864, 600,
    300 frames, made from ``--seed``): finite, non-silent waveforms of
@@ -20,13 +25,33 @@ Run from the root of a checkout. Phases, one JSON line each:
    K1 and K2 ran 4 times each; the same requests through the generator
    with both kernel flags off (plain PyTorch on the card) give the same
    waveforms within a stated tolerance.
-5. timing: CUDA-event times at the same shapes of each kernel beside
-   its plain version, K1's library call (``F.conv_transpose1d``, timed
-   here only), each kernel's bound from bytes and f32 operations, the
-   model stages, and one 10 s request end to end.
+5. train: a seeded wav tree (32 utterances of 1.5-4 s: 4 speakers x 2
+   domains x 2 styles, with transcripts) through the trainer's path at
+   the full width of ``tts_cfg()`` (batch 16, 2 micro-batches a step,
+   refiner every 2nd step): ``data_streams`` (dataset -> collator with K3
+   and f0 / energy on the card -> trainer batches) -> ``UnifiedTrainer``
+   for 6 engine steps -> one ``validate()``. Every K3 launch of the run
+   (input and output kept) is held afterwards against the plain version
+   on its own batch, within the tolerances of 3b. It fails unless that
+   holds, every loss is finite, K3 ran once per collated batch, the
+   first update (lr 0)
+   left the acoustic weights as they were and the second moved them, the
+   refiner stepped 3 times and its VQ statistics moved, and the noise
+   scale and L1 weight follow the validation L1. On one batch of 2, the
+   first acoustic and refiner losses on the card agree with the port on
+   the CPU given the same draws (TF32 off). Step and collate times and
+   peak memory.
+6. timing: CUDA-event times of each kernel beside its plain version (K1
+   and K2 at the stage shapes above, K3 on the largest batch the trainer
+   collated, with the peak memory each of K3's versions takes beyond
+   its input), K1's library call (``F.conv_transpose1d``, timed here
+   only), each kernel's bound from bytes and f32 operations, the model
+   stages, and one 10 s request end to end.
 
-Then the ``{"kernels": [...]}`` line (at the serving bucket's shapes:
-``ms`` and the bounds summed over the four stage calls of one forward),
+Then the ``{"kernels": [...]}`` line (K1 and K2 at the serving bucket's
+shapes: ``ms`` and the bounds summed over the four stage calls of one
+forward, launches on the served forward; K3 at the largest collated
+batch, launches over the training run, one per collated batch),
 the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero without the ``ok`` line. Without a CUDA card, or without the
@@ -39,7 +64,9 @@ import json
 import signal
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor
 # cores, and HBM3 bandwidth. The port's kernels run f32 FMAs.
@@ -54,6 +81,13 @@ K1_TOL = (1e-4, 1e-4)   # |kernel - plain| <= atol + rtol * |plain|
 K2_TOL = (2e-4, 2e-4)
 WAV_TOL = 5e-4          # max |wav(kernels) - wav(plain)|, tanh output
 SILENT = 1e-3           # a waveform whose peak is below this is silent
+MEL_BATCH = 16          # the trainer's batch
+MEL_BUCKET = 98_304     # 12 x 8192: the trainer's largest bucket (4 s x 1/0.9)
+CLIP_SAMPLES = 220_500  # one 10 s clip at 22.05 kHz
+K3_TOL = (1e-4, 1e-4)   # log-mel; 3.8e-6 measured (f32 DFT sums in another order)
+K3_TAIL_TOL = 1e-5      # frames that see only zero padding: exact zeros
+TRAIN_STEPS = 6
+XDEV_RTOL = 1e-4        # first-step losses, card vs CPU, same draws
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -230,6 +264,317 @@ def time_kernels(shapes, gen, dil):
     return rows
 
 
+# ------------------------------------------------------------ mel frontend
+def mel_inputs(seed: int, sr: int):
+    """A batch of 16 wavs of 1.5-4.4 s (odd rows white noise, even rows
+    five-harmonic tones at 90-300 Hz) zero-padded to one 98,304-sample
+    bucket, their lengths, and one 10 s noise clip."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(int(1.5 * sr), int(4.4 * sr), MEL_BATCH)
+    wav = np.zeros((MEL_BATCH, MEL_BUCKET), np.float32)
+    for i, n in enumerate(lengths):
+        if i % 2:
+            wav[i, :n] = 0.3 * rng.standard_normal(n)
+        else:
+            t = np.arange(n) / sr
+            f0 = rng.uniform(90.0, 300.0)
+            wav[i, :n] = sum(0.3 / k * np.sin(2 * np.pi * f0 * k * t)
+                             for k in range(1, 6))
+    clip = (0.3 * rng.standard_normal((1, CLIP_SAMPLES))).astype(np.float32)
+    return wav, lengths, clip
+
+
+def k3_cost(batch: int, n: int, audio):
+    """Bytes (wav in, log-mel out, window, twiddles, filterbank) and the
+    f32 operations the function needs per frame: window n_fft, a real
+    FFT 2.5 n_fft log2 n_fft, magnitudes 4 n_bins, the filterbank's
+    nonzero taps 2 nnz, the log n_mels (not the 4 n_fft n_bins of a DFT
+    by dense bases)."""
+    import math
+    import numpy as np
+    from ttsx_torch.dsp.stft import mel_filterbank
+    bins = audio.n_fft // 2 + 1
+    frames = batch * (1 + n // audio.hop_length)
+    nnz = int(np.count_nonzero(mel_filterbank(
+        audio.sample_rate, audio.n_fft, audio.n_mels, audio.f_min,
+        audio.f_max)))
+    nbytes = 4 * (batch * n + frames * audio.n_mels + 3 * audio.n_fft
+                  + bins * audio.n_mels)
+    per_frame = (audio.n_fft + 2.5 * audio.n_fft * math.log2(audio.n_fft)
+                 + 4 * bins + 2 * nnz + audio.n_mels)
+    return nbytes, frames * per_frame
+
+
+def silent_frames(wav, audio):
+    """[B, T] bool: the frames whose every sample, reflect padding
+    included, is an exact zero."""
+    import torch.nn.functional as F
+    half = audio.n_fft // 2
+    hit = F.pad((wav != 0).float()[:, None], (half, half), mode="reflect")
+    return hit[:, 0].unfold(-1, audio.n_fft, audio.hop_length).sum(-1) == 0
+
+
+def k3_check(wav, got, audio):
+    """K3's output ``got`` on ``wav`` against the plain version: |error|
+    per value, and the fields every K3 check reports."""
+    from ttsx_torch.ops.mel_frontend import log_mel_plain
+    ref = log_mel_plain(wav, audio)
+    d = (got - ref).abs()
+    silent = silent_frames(wav, audio)
+    tail = float(d[silent].max()) if bool(silent.any()) else 0.0
+    return d, dict(shape=list(got.shape), max_abs_err=float(d.max()),
+                   max_abs_err_silent=tail, silent_frames=int(silent.sum()),
+                   ok=within(got, ref, K3_TOL) and tail <= K3_TAIL_TOL)
+
+
+def check_mel(audio, wav, clip):
+    """K3 against its plain version on the batch (worst |error| overall,
+    on the tone rows, on the noise rows, on the silent frames) and on
+    the 10 s clip."""
+    import torch
+    from ttsx_torch.ops.mel_frontend import log_mel
+    x = torch.as_tensor(wav, device="cuda")
+    c = torch.as_tensor(clip, device="cuda")
+    d, batch = k3_check(x, log_mel(x, audio), audio)
+    _, one = k3_check(c, log_mel(c, audio), audio)
+    return dict(batch=batch, clip=one,
+                max_abs_err=max(batch["max_abs_err"], one["max_abs_err"]),
+                max_abs_err_tones=float(d[0::2].max()),
+                max_abs_err_noise=float(d[1::2].max()),
+                ok=batch["ok"] and one["ok"])
+
+
+def time_mel(audio, x):
+    """K3 and its plain version on ``x`` [B, N] on the card: ms, the
+    bound, and the peak memory each call takes beyond its input (after a
+    warm-up, so the plain version's cached bases are not counted)."""
+    import torch
+    from ttsx_torch.ops.mel_frontend import log_mel, log_mel_plain
+    nbytes, flops = k3_cost(*x.shape, audio)
+    bms, by = bound_ms(nbytes, flops)
+    extra = {}
+    for name, fn in (("k3", log_mel), ("plain", log_mel_plain)):
+        fn(x, audio)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn(x, audio)
+        torch.cuda.synchronize()
+        extra[name] = (torch.cuda.max_memory_allocated() - base) / 1e6
+    return dict(shape=list(x.shape), ms=cuda_ms(lambda: log_mel(x, audio)),
+                plain_ms=cuda_ms(lambda: log_mel_plain(x, audio)),
+                library_ms=None, bound_ms=bms, bound_by=by,
+                gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                peak_extra_mb_k3=extra["k3"], peak_extra_mb_plain=extra["plain"])
+
+
+# ------------------------------------------------------------------ training
+def write_wav_tree(root: Path, seed: int, sr: int) -> int:
+    """<speaker>/<domain>/<style>/*.wav, 4 x 2 x 2 x 2 = 32 utterances of
+    1.5-4 s with transcripts: voiced syllables (five harmonics of a
+    wandering f0, 3-6 Hz envelope) with short pauses, over a little
+    noise; speaker sets the pitch, style the loudness, domain the noise."""
+    import numpy as np
+    from ttsx_torch.data.dataset import write_wav
+    rng = np.random.default_rng(seed)
+    words = ("the a voice of train mel band noise clear slow fast tone "
+             "speaker style domain test").split()
+    n = 0
+    for s in range(4):
+        for d in ("studio", "phone"):
+            for style in ("calm", "loud"):
+                folder = root / f"spk{s}" / d / style
+                folder.mkdir(parents=True)
+                for u in range(2):
+                    k = int(rng.integers(int(1.5 * sr), int(4.0 * sr)))
+                    t = np.arange(k) / sr
+                    f0 = (100 + 40 * s) * (1 + 0.1 * np.sin(
+                        2 * np.pi * rng.uniform(0.5, 2) * t))
+                    phase = 2 * np.pi * np.cumsum(f0) / sr
+                    voice = sum(np.sin(h * phase) / h for h in range(1, 6))
+                    env = np.clip(np.sin(2 * np.pi * rng.uniform(3, 6) * t),
+                                  0, None)
+                    amp = 0.2 if style == "calm" else 0.5
+                    noise = 0.003 if d == "studio" else 0.02
+                    wav = amp * env * voice / 2 + noise * rng.standard_normal(k)
+                    write_wav(folder / f"u{u}.wav", wav.astype(np.float32), sr)
+                    (folder / f"u{u}.txt").write_text(" ".join(
+                        rng.choice(words, int(rng.integers(3, 9)))))
+                    n += 1
+    return n
+
+
+def cross_device_losses(cfg, batch, seed: int):
+    """First-step acoustic and refiner losses of fresh blocks (same seed,
+    same init) on the CPU, with its draws recorded, and on the card with
+    those draws replayed; the refiner takes the CPU's acoustic mel."""
+    from ttsx_torch.nn.draws import RecordingDraws, ReplayDraws
+    from ttsx_torch.train.blocks import AcousticBlock, RefinerBlock
+    out = {}
+    for name, cls in (("acoustic", AcousticBlock), ("refiner", RefinerBlock)):
+        cpu, card = cls(cfg, "cpu", seed), cls(cfg, "cuda", seed)
+        cpu.state.draws = RecordingDraws(cpu.state.draws)
+        if name == "acoustic":
+            got_cpu = cpu.train_step(batch)
+            mel_pred = got_cpu["mel_pred"]
+        else:
+            got_cpu = cpu.train_step(batch, mel_pred, 1.0, 1.0)
+        card.state.draws = ReplayDraws(cpu.state.draws.records, "cuda")
+        got_card = (card.train_step(batch) if name == "acoustic" else
+                    card.train_step(batch, mel_pred.cuda(), 1.0, 1.0))
+        if not card.state.draws.exhausted():
+            fail(f"{name}: the card drew less than the CPU")
+        a, b = float(got_cpu["metrics"]["loss"]), float(
+            got_card["metrics"]["loss"])
+        moved = [(p.detach().cpu() - q.detach().cpu()).abs().max()
+                 for p, q in zip(cpu.model.parameters(),
+                                 card.model.parameters())]
+        out[name] = dict(loss_cpu=a, loss_card=b,
+                         rel_err=abs(a - b) / max(abs(a), 1e-30),
+                         card_device=str(next(card.model.parameters()).device),
+                         params_max_abs_diff_after=float(max(moved)),
+                         draws=len(cpu.state.draws.records))
+        if name == "acoustic":
+            out[name]["mel_pred_max_abs_diff"] = float(
+                (got_card["mel_pred"].cpu() - mel_pred).abs().max())
+    return out
+
+
+def train_phase(seed: int, workdir: Path):
+    """The trainer's main path at full width on the card; see the module
+    docstring (phase 5). Returns the phase's fields, and the largest
+    wav batch K3 ran on with its audio config (for the timing phase)."""
+    from ttsx_torch.core.config import tts_cfg
+    from ttsx_torch.ops import mel_frontend as k3
+    cfg = tts_cfg()
+    n_utts = write_wav_tree(workdir / "wavs", seed, cfg.audio.sample_rate)
+    launch, k3_seen = k3._launch, []
+
+    def kept(wav, audio):
+        """K3's own launch (counted there), its input and output kept for
+        the check after the run."""
+        out = launch(wav, audio)
+        k3_seen.append((wav.clone(), out.clone(), audio))
+        return out
+
+    k3._launch = kept
+    try:
+        fields = run_trainer(cfg, seed, workdir)
+    finally:
+        k3._launch = launch
+    checks = [k3_check(w, o, a)[1] for w, o, a in k3_seen]
+    fields.update(utterances=n_utts, k3_checked=len(k3_seen),
+                  k3_checks=checks, k3_tolerance=dict(
+                      log_mel=K3_TOL, silent_abs=K3_TAIL_TOL),
+                  k3_max_abs_err=max(c["max_abs_err"] for c in checks),
+                  k3_max_abs_err_silent=max(c["max_abs_err_silent"]
+                                            for c in checks))
+    if len(k3_seen) != fields["launches"]["mel_frontend"]:
+        fail(f"kept {len(k3_seen)} K3 launches of "
+             f"{fields['launches']['mel_frontend']}")
+    if not all(c["ok"] for c in checks):
+        fail(f"K3 disagrees with its plain version on a collated batch: "
+             f"{[c for c in checks if not c['ok']]}")
+    return fields, max(((w, a) for w, _, a in k3_seen),
+                       key=lambda wa: wa[0].shape[1])
+
+
+def run_trainer(cfg, seed: int, workdir: Path):
+    import numpy as np
+    import torch
+    from ttsx_torch import ops
+    from ttsx_torch.cli.main import data_streams
+    from ttsx_torch.train.engine import UnifiedTrainer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    stream, val = data_streams(cfg, str(workdir / "wavs"), "cuda")
+    collated, shapes = [], []
+
+    def counted():
+        for b in stream:
+            collated.append(b["collate_time"])
+            shapes.append(list(b["mel"].shape))
+            yield b
+
+    trainer = UnifiedTrainer(cfg, counted(), val, device="cuda")
+    spans = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spans.setdefault(name, []).append(
+                (time.perf_counter() - t1) * 1e3)
+            return out
+        return run
+
+    for name, blk in trainer.blocks.items():
+        step_fn = "train_step_accum" if name == "acoustic" else "train_step"
+        setattr(blk, step_fn, timed(name, getattr(blk, step_fn)))
+        blk.state.tx.step = timed(f"{name}_optimizer", blk.state.tx.step)
+    ac = trainer.blocks["acoustic"].model
+    rf = trainer.blocks["refiner"].model
+    snap = lambda m: [p.detach().clone() for p in m.parameters()]
+    moved = lambda a, b: any(not torch.equal(x, y) for x, y in zip(a, b))
+    p0, vq0 = snap(ac), rf.vq.stage_0.embed_sum.clone()
+    it = trainer.train_iter
+    steps, times = [], []
+    for i in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        steps.append(trainer.train_step(next(it)))
+        times.append((time.perf_counter() - t1) * 1e3)
+        if i == 0 and moved(p0, snap(ac)):
+            fail("the first update (lr 0) moved the acoustic weights")
+        if i == 1 and not moved(p0, snap(ac)):
+            fail("the second update left the acoustic weights as they were")
+    vm = trainer.validate()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_batches = len(collated) + len(val)
+    losses = {k: v for m in steps for k, v in m.items() if k.endswith("loss")}
+    bad = [k for m in steps for k, v in m.items()
+           if k != "step_time_s" and not np.isfinite(v)]
+    if bad or not np.isfinite(vm["val_l1"]):
+        fail(f"non-finite training metrics: {bad} / {vm}")
+    if launches["mel_frontend"] != n_batches:
+        fail(f"K3 launched {launches['mel_frontend']} times for "
+             f"{n_batches} collated batches")
+    if launches["upsample"] or launches["resblock_stack"]:
+        fail(f"the trainer launched a vocoder kernel: {launches}")
+    if trainer.blocks["refiner"].state.step != TRAIN_STEPS // 2:
+        fail(f"the refiner stepped {trainer.blocks['refiner'].state.step} "
+             f"times in {TRAIN_STEPS} engine steps")
+    if torch.equal(vq0, rf.vq.stage_0.embed_sum):
+        fail("the refiner's VQ statistics did not move")
+    st = trainer.state
+    if (abs(st.noise_scale - float(np.clip(vm["val_l1"], 0.05, 1.0))) > 1e-9
+            or abs(st.l1_weight - float(np.clip(1 - vm["val_l1"], 0.1, 1.0)))
+            > 1e-9):
+        fail(f"noise scale / L1 weight do not follow val L1: {vars(st)}")
+    xb = {k: v[:2] for k, v in val[0].items()}
+    xdev = cross_device_losses(cfg, xb, seed)
+    bad = {k: v for k, v in xdev.items() if not v["rel_err"] <= XDEV_RTOL}
+    return dict(
+        engine_steps=TRAIN_STEPS,
+        batch=cfg.train.batch_size, grad_accum=cfg.train.grad_accum_steps,
+        collated_batches=n_batches, mel_shapes=shapes,
+        launches=launches, losses_last=losses,
+        acoustic_loss=[m["acoustic/loss"] for m in steps],
+        refiner_loss=[m["refiner/loss"] for m in steps if "refiner/loss" in m],
+        refiner_updates=trainer.blocks["refiner"].state.step,
+        val=vm, noise_scale=st.noise_scale, l1_weight=st.l1_weight,
+        step_ms=times, step_ms_median_after_first=float(np.median(times[1:])),
+        block_ms=spans,
+        collate_ms=[c * 1e3 for c in collated],
+        collate_ms_mean=float(np.mean(collated)) * 1e3,
+        peak_mem_gb=peak, cross_device=xdev, cross_device_rtol=XDEV_RTOL,
+        cross_device_ok=not bad)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -248,7 +593,7 @@ def main(argv=None) -> int:
     signal.alarm(TIME_LIMIT_S)   # a hang ends the run without a result
     import numpy as np
     from ttsx_torch import ops
-    from ttsx_torch.core.config import zoo_cfg
+    from ttsx_torch.core.config import AudioConfig, zoo_cfg
     from ttsx_torch.core.device import set_f32_numerics
     from ttsx_torch.ops import build
     from ttsx_torch.serve import SynthesisServer
@@ -286,6 +631,17 @@ def main(argv=None) -> int:
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
 
+    # -- 3b. K3 against its plain version on a training batch and a clip
+    t0 = time.time()
+    audio = AudioConfig(mel_normalize=False)
+    mel_wav, mel_lengths, mel_clip = mel_inputs(args.seed, audio.sample_rate)
+    mel_check = check_mel(audio, mel_wav, mel_clip)
+    emit("mel_frontend", t0, tolerance={"log_mel": K3_TOL,
+                                        "silent_abs": K3_TAIL_TOL},
+         lengths=[int(n) for n in mel_lengths], **mel_check)
+    if not mel_check["ok"]:
+        fail("K3 disagrees with its plain version")
+
     # -- 4. serve the zoo model through the kernels, then the plain path
     t0 = time.time()
     srv = serve_from_zoo(device="cuda", bf16=False, max_batch=MAX_BATCH,
@@ -308,14 +664,14 @@ def main(argv=None) -> int:
                  f"{bool(np.isfinite(w_).all())}, want {n_ * hop} samples")
         if float(np.abs(w_).max()) < SILENT:
             fail(f"silent waveform for a {n_}-frame request")
-    if launches != {"upsample": 4, "resblock_stack": 4}:
-        fail(f"launches on the served forward {launches}, want 4 and 4")
+    if launches != {"upsample": 4, "resblock_stack": 4, "mel_frontend": 0}:
+        fail(f"launches on the served forward {launches}, want 4, 4, 0")
     plain_pipe = srv.pipe.with_vocoder_kernels(False)
     plain = SynthesisServer(plain_pipe, device="cuda", max_batch=MAX_BATCH,
                             frames=FRAMES, scale_stats=srv.scale_stats.cpu())
     ops.reset_launches()
     wavs_plain = plain.serve_batch(reqs)
-    if ops.launch_counts() != {"upsample": 0, "resblock_stack": 0}:
+    if any(ops.launch_counts().values()):
         fail("the plain path launched a kernel")
     wav_err = max(float(np.abs(a - b).max()) for a, b in zip(wavs, wavs_plain))
     emit("serve", t0, zoo_load_s=round(load_s, 3), serve_s=round(serve_s, 3),
@@ -324,12 +680,31 @@ def main(argv=None) -> int:
          peak=[float(np.abs(w_).max()) for w_ in wavs],
          rms=[float(np.sqrt(np.mean(w_ ** 2))) for w_ in wavs],
          launches=launches, wav_max_abs_err_vs_plain=wav_err,
-         wav_tolerance=WAV_TOL)
+         wav_tolerance=WAV_TOL,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if wav_err > WAV_TOL:
         fail(f"kernel path waveforms differ from the plain path by {wav_err}")
+    del plain, wavs_plain
 
-    # -- 5. timing at the stage shapes of batch 1 and of the serving bucket
+    # -- 5. the acoustic + refiner trainer on a wav tree, K3 in the collator
     t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        train, (k3_wav, k3_audio) = train_phase(args.seed, Path(tmp))
+    train_launches = train["launches"]
+    emit("train", t0, **train)
+    if not train["cross_device_ok"]:
+        fail(f"first-step losses on the card and the CPU differ by more "
+             f"than {XDEV_RTOL}: {train['cross_device']}")
+
+    # -- 6. timing: K3 on the largest batch the trainer collated, K1 and K2
+    # at the stage shapes of batch 1 and of the serving bucket
+    t0 = time.time()
+    mel_row = time_mel(k3_audio, k3_wav)
+    same = [c for c, sh in zip(train["collate_ms"], train["mel_shapes"])
+            if sh[1] == mel_row["shape"][1] // k3_audio.hop_length + 1]
+    k3_collate_ms = float(np.median(same)) if same else None
+    del k3_wav
+    torch.cuda.reset_peak_memory_stats()
     rows = {b: time_kernels(shapes[b], gen, dil) for b in shapes}
     # model stages and one 10 s request end to end (batch 1)
     one = SynthesisServer(srv.pipe, device="cuda", max_batch=1, frames=FRAMES,
@@ -359,7 +734,11 @@ def main(argv=None) -> int:
         t1 = time.perf_counter()
         one.serve_batch(reqs[:1])
         e2e.append((time.perf_counter() - t1) * 1e3)
-    emit("timing", t0, kernels_by_batch=rows, stages_batch1=stages,
+    emit("timing", t0, kernels_by_batch=rows, mel_frontend=mel_row,
+         collate_ms_median_at_k3_shape=k3_collate_ms,
+         k3_share_of_collate=(mel_row["ms"] / k3_collate_ms if same
+                              else None),
+         stages_batch1=stages,
          e2e_ms_10s_request=sorted(e2e)[len(e2e) // 2], e2e_ms_all=e2e,
          audio_s=FRAMES * hop / vc.sr,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -384,6 +763,15 @@ def main(argv=None) -> int:
             bound_ms=total(name, "bound_ms"),
             bound_by=max(main_rows[name], key=lambda r: r["bound_ms"])["bound_by"],
             library_ms=total(name, "library_ms")))
+    kernels.append(dict(
+        name="mel_frontend", route="cuda",
+        source="ttsx_torch/ops/csrc/mel_frontend.cu",
+        replaces="ttsx/ops/mel_kernel.py:87",
+        launches=train_launches["mel_frontend"],
+        max_abs_err=max(mel_check["max_abs_err"], train["k3_max_abs_err"]),
+        ms=mel_row["ms"],
+        plain_ms=mel_row["plain_ms"], bound_ms=mel_row["bound_ms"],
+        bound_by=mel_row["bound_by"], library_ms=None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     signal.alarm(0)

@@ -1,5 +1,6 @@
 """Tests that need a CUDA card (``gpu`` marker): the CUDA kernels against
-their plain PyTorch versions, and the zoo served through them.
+their plain PyTorch versions, the zoo served through K1 and K2, and K3
+refusing to fall back when its library is missing.
 
 Each test skips without a card. This file imports neither JAX nor the
 JAX package, so on a machine without JAX it runs on its own:
@@ -13,6 +14,9 @@ import pytest
 import torch
 
 from ttsx_torch import ops
+from ttsx_torch.core.config import AudioConfig
+from ttsx_torch.ops import build
+from ttsx_torch.ops.mel_frontend import log_mel, log_mel_plain
 from ttsx_torch.ops.resblock_stack import (film_resblock_stack,
                                            film_resblock_stack_plain)
 from ttsx_torch.ops.upsample import convt_upsample, convt_upsample_plain
@@ -22,6 +26,7 @@ pytestmark = pytest.mark.gpu
 # |kernel - plain| <= atol + rtol * |plain|: f32 sums in other orders
 K1_TOL = dict(rtol=1e-5, atol=1e-5)
 K2_TOL = dict(rtol=1e-4, atol=1e-4)
+K3_TOL = dict(rtol=1e-4, atol=1e-4)   # log-mel, as chip_smoke.py states it
 
 
 @pytest.fixture
@@ -102,7 +107,8 @@ def test_serve_from_zoo_through_kernels(cuda):
         for i, n in enumerate((64, 40))]
     ops.reset_launches()
     outs = srv.serve_batch(reqs)
-    assert ops.launch_counts() == {"upsample": 4, "resblock_stack": 4}
+    assert ops.launch_counts() == {"upsample": 4, "resblock_stack": 4,
+                                   "mel_frontend": 0}
     for o, n in zip(outs, (64, 40)):
         assert o.shape == (n * 256,) and np.isfinite(o).all()
         assert float(np.abs(o).max()) > 1e-3
@@ -111,3 +117,49 @@ def test_serve_from_zoo_through_kernels(cuda):
                             scale_stats=srv.scale_stats.cpu())
     for a, b in zip(outs, plain.serve_batch(reqs)):
         np.testing.assert_allclose(a, b, rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize("n_fft,hop,n_mels,lengths,N", [
+    (1024, 256, 80, (73728, 40000, 33075), 73728),   # the trainer's frontend
+    (1024, 256, 80, (220500,), 220500),              # one 10 s clip
+    (256, 64, 32, (4000, 1000), 4096),               # tests' small frontend
+    (2048, 512, 128, (30000,), 30001)])
+def test_mel_frontend_kernel_matches_plain(cuda, n_fft, hop, n_mels, lengths,
+                                           N):
+    """Zero-padded rows of noise: within K3_TOL, and the frames that see
+    only the padding within 1e-5 (exact zeros on both sides)."""
+    cfg = AudioConfig(n_fft=n_fft, win_length=n_fft, hop_length=hop,
+                      n_mels=n_mels, mel_normalize=False)
+    wav = torch.zeros(len(lengths), N)
+    for i, n in enumerate(lengths):
+        wav[i, :n] = torch.randn(n, generator=cuda) * 0.3
+    wav = wav.cuda()
+    before = log_mel.launches
+    got = log_mel(wav, cfg)
+    torch.cuda.synchronize()
+    assert log_mel.launches == before + 1
+    assert got.shape == (len(lengths), 1 + N // hop, n_mels)
+    ref = log_mel_plain(wav, cfg)
+    _close(got, ref, **K3_TOL)
+    for i, n in enumerate(lengths):
+        tail = (n + n_fft // 2) // hop + 1
+        _close(got[i, tail:], ref[i, tail:], rtol=0, atol=1e-5)
+
+
+def test_mel_frontend_kernel_does_not_fall_back(cuda, monkeypatch):
+    """A CUDA tensor and no kernel library: K3's wrapper raises, and the
+    plain version does not run in its place."""
+    import ttsx_torch.ops.mel_frontend as mel_mod
+
+    def no_library(name):
+        raise build.KernelCompileError(f"no {name} library")
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(build, "load", no_library)
+    monkeypatch.setattr(mel_mod, "log_mel_plain", forbidden)
+    before = log_mel.launches
+    with pytest.raises(build.KernelCompileError):
+        log_mel(torch.zeros(1, 4096, device="cuda"), AudioConfig())
+    assert log_mel.launches == before

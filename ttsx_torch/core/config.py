@@ -1,8 +1,9 @@
-"""Configuration dataclasses of the synthesis chain.
+"""Configuration dataclasses of the synthesis chain and its trainer.
 
-A stdlib-only copy of the part of ``ttsx.core.config`` that text->waveform
-synthesis reads: ``S4Config``, ``AcousticConfig``, ``RefinerConfig``,
-``VocoderConfig`` and a ``TTSXConfig`` root holding those three. Field
+A stdlib-only copy of the part of ``ttsx.core.config`` that synthesis and
+the acoustic + refiner trainer read: ``AudioConfig``, ``S4Config``,
+``AcousticConfig``, ``RefinerConfig``, ``VocoderConfig``, ``NovelConfig``,
+``TrainConfig`` and a ``TTSXConfig`` root holding them. Field
 names and defaults are the reference's, so a dict written by
 ``ttsx.core.config.to_dict`` loads here through ``from_dict`` (keys this
 tree does not carry are ignored) and back.
@@ -16,7 +17,20 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field, fields, is_dataclass
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class AudioConfig:
+    sample_rate: int = 22050
+    n_fft: int = 1024
+    win_length: int = 1024
+    hop_length: int = 256
+    n_mels: int = 80
+    f_min: float = 0.0
+    f_max: Optional[float] = 8000.0
+    log_eps: float = 1e-5
+    mel_normalize: bool = True  # per-bin mean/std over time
 
 
 @dataclass(frozen=True)
@@ -133,10 +147,46 @@ class VocoderConfig:
 
 
 @dataclass(frozen=True)
+class NovelConfig:
+    """The trainer's toggles (``sde_noise_annealing``: the refiner's noise
+    scale and L1 weight follow the validation L1; ``ema_swap_validate``:
+    validate on EMA weights where a block keeps them; ``dynamic_gan``
+    belongs to the vocoder block, not ported yet)."""
+    sde_noise_annealing: bool = True
+    dynamic_gan: bool = True
+    ema_swap_validate: bool = True
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    max_steps: int = 200_000
+    grad_accum_steps: int = 2
+    batch_size: int = 16
+    lr: float = 2e-4
+    weight_decay: float = 1e-2
+    warmup_steps: int = 1000
+    grad_clip: float = 1.0
+    val_freq: int = 1000
+    checkpoint_freq: int = 5000
+    refiner_update_freq: int = 2
+    vocoder_freeze_until: int = 0
+    gan_d_steps: int = 1
+    seed: int = 42
+    bf16: bool = True      # carried for interchange: the reference
+    remat: bool = True     # trainer reads neither; the port trains in f32
+    novel: NovelConfig = field(default_factory=NovelConfig)
+    log_tensorboard: bool = True
+    log_csv: bool = True
+    log_wandb: bool = False
+
+
+@dataclass(frozen=True)
 class TTSXConfig:
+    audio: AudioConfig = field(default_factory=AudioConfig)
     acoustic: AcousticConfig = field(default_factory=AcousticConfig)
     refiner: RefinerConfig = field(default_factory=RefinerConfig)
     vocoder: VocoderConfig = field(default_factory=VocoderConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def to_dict(cfg: Any) -> Any:
@@ -165,7 +215,8 @@ def from_dict(cls, data: dict):
 
 
 def tts_cfg(levels: int = 2) -> TTSXConfig:
-    """The chain the zoo was trained with (``ttsx.eval.parity._tts_cfg``)."""
+    """The chain the zoo was trained with, and its trainer settings
+    (``ttsx.eval.parity._tts_cfg``)."""
     return TTSXConfig(
         acoustic=AcousticConfig(text_emb_dim=256, speaker_dim=16),
         refiner=RefinerConfig(
@@ -173,6 +224,7 @@ def tts_cfg(levels: int = 2) -> TTSXConfig:
             s4=S4Config(heads=4, l_max=1024, causal=True, norm_groups=4,
                         dropout=0.1)),
         vocoder=VocoderConfig(),
+        train=TrainConfig(warmup_steps=100, max_steps=100_000, lr=2e-4),
     )
 
 

@@ -1,14 +1,16 @@
-"""Acoustic model at inference (``ttsx/models/acoustic.py``).
+"""Acoustic model (``ttsx/models/acoustic.py``).
 
 text_emb [B, T, Dt] + prosody [B, T, 18] + emotion [B, 6] + speaker
-[B, Ds] -> mel [B, T, 80], duration, pitch, energy [B, T]. The diffusion
-decoder runs once at t=0 (at inference its noise-prediction pass is the
-same call). ``MelDiscriminator`` only carries the trained discriminator's
-parameters so a zoo file loads whole; synthesis never runs it.
+[B, Ds] -> mel [B, T, 80], duration, pitch, energy [B, T]. At inference
+(``draws=None``) the diffusion decoder runs once at t=0 and nothing else.
+A training forward (``draws`` given) also runs the conformer and FiLM
+dropouts and stochastic depth, the noise-prediction pass at a random
+diffusion step, and the in-model mel discriminator on the predicted mel
+(and on ``target_mel`` when given).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from ttsx_torch.core.config import AcousticConfig
 from ttsx_torch.nn.conformer import ConformerLayer
 from ttsx_torch.nn.conv import Conv1d, ConvTranspose1d
+from ttsx_torch.nn.draws import Draws
 from ttsx_torch.nn.embed import rotary_mix
 from ttsx_torch.nn.film import ResidualConvBlock
 from ttsx_torch.nn.layers import Dense, Embed
@@ -27,6 +30,13 @@ class AcousticOutput(NamedTuple):
     duration: torch.Tensor
     pitch: torch.Tensor
     energy: torch.Tensor
+    # training forward only: discriminator logits / features per period,
+    # and the noise-prediction pass [B, T, hidden]
+    real_logits: Tuple[torch.Tensor, ...] = ()
+    fake_logits: Tuple[torch.Tensor, ...] = ()
+    real_features: Tuple[torch.Tensor, ...] = ()
+    fake_features: Tuple[torch.Tensor, ...] = ()
+    noise_pred: Optional[torch.Tensor] = None
 
 
 class EmotionEncoder(nn.Module):
@@ -78,13 +88,26 @@ class UNetDiffusion(nn.Module):
 
 
 class MelDiscriminator(nn.Module):
-    """Parameter holder of the training-time mel discriminator."""
+    """Multi-period mel discriminator: per period p, the mel averaged over
+    groups of p frames (the tail that does not fill a group dropped) ->
+    conv15 -> leaky_relu(0.1) (the features) -> conv15 (the logits)."""
 
     def __init__(self, channels: int = 80, periods=(1, 2, 3)):
         super().__init__()
+        self.channels, self.periods = channels, tuple(periods)
         for i in range(len(periods)):
             setattr(self, f"Conv1d_{2 * i}", Conv1d(channels, channels // 2, 15))
             setattr(self, f"Conv1d_{2 * i + 1}", Conv1d(channels // 2, 1, 15))
+
+    def forward(self, mel: torch.Tensor):
+        B, T, C = mel.shape
+        logits, features = [], []
+        for i, p in enumerate(self.periods):
+            h = mel[:, :(T // p) * p].reshape(B, T // p, p, C).mean(dim=2)
+            feat = F.leaky_relu(getattr(self, f"Conv1d_{2 * i}")(h), 0.1)
+            logits.append(getattr(self, f"Conv1d_{2 * i + 1}")(feat))
+            features.append(feat)
+        return tuple(logits), tuple(features)
 
 
 class AcousticModel(nn.Module):
@@ -97,16 +120,20 @@ class AcousticModel(nn.Module):
         self.Conv1d_0 = Conv1d(cfg.text_emb_dim + H, H, 1)
         for i in range(cfg.conformer_layers):
             setattr(self, f"conformer_{i}", ConformerLayer(
-                H, cfg.attention_heads, cfg.transformer_dim, cfg.kernel_size))
+                H, cfg.attention_heads, cfg.transformer_dim, cfg.kernel_size,
+                cfg.dropout))
         self.VarianceAdaptor_0 = VarianceAdaptor(H + total_cond, H)
         for i in range(cfg.num_layers):
             setattr(self, f"film_{i}", ResidualConvBlock(
-                H, total_cond, cfg.kernel_size))
+                H, total_cond, cfg.kernel_size, cfg.dropout,
+                sd_prob=cfg.base_sd_prob * (i + 1) / cfg.num_layers,
+                ls_init=cfg.layer_scale_init))
         self.UNetDiffusion_0 = UNetDiffusion(H, cfg.diffusion_steps)
         self.mel_out = Dense(H, cfg.mel_dim)
         self.MelDiscriminator_0 = MelDiscriminator(cfg.mel_dim)
 
-    def forward(self, text_emb, prosody, emotion_probs, speaker=None
+    def forward(self, text_emb, prosody, emotion_probs, speaker=None,
+                target_mel=None, draws: Draws | None = None
                 ) -> AcousticOutput:
         cfg = self.cfg
         B, T, _ = text_emb.shape
@@ -121,10 +148,23 @@ class AcousticModel(nn.Module):
         cond = torch.cat(parts, dim=-1)
         h = rotary_mix(self.Conv1d_0(torch.cat([text_emb, emo_emb], dim=-1)))
         for i in range(cfg.conformer_layers):
-            h = getattr(self, f"conformer_{i}")(h, pos_emb=h)
+            h = getattr(self, f"conformer_{i}")(h, pos_emb=h, draws=draws)
         duration, pitch, energy = self.VarianceAdaptor_0(h, cond)
         for i in range(cfg.num_layers):
-            h = getattr(self, f"film_{i}")(h, cond)
+            h = getattr(self, f"film_{i}")(h, cond, draws=draws)
         t0 = torch.zeros(B, dtype=torch.long, device=h.device)
         mel = self.mel_out(self.UNetDiffusion_0(h, t0))
-        return AcousticOutput(mel, duration, pitch, energy)
+        if draws is None:
+            return AcousticOutput(mel, duration, pitch, energy)
+        # noise prediction at a random step t: h + noise * t / steps
+        t_rand = draws.randint((B,), 0, cfg.diffusion_steps)
+        noise = draws.normal(h.shape)
+        h_noisy = h + noise * (t_rand.float()[:, None, None]
+                               / cfg.diffusion_steps)
+        noise_pred = self.UNetDiffusion_0(h_noisy, t_rand)
+        real_logits, real_features = ((), ()) if target_mel is None else \
+            self.MelDiscriminator_0(target_mel)
+        fake_logits, fake_features = self.MelDiscriminator_0(mel)
+        return AcousticOutput(mel, duration, pitch, energy, real_logits,
+                              fake_logits, real_features, fake_features,
+                              noise_pred)

@@ -1,11 +1,13 @@
-"""Score-SDE mel refiner, single deterministic pass (``ttsx/models/refiner.py``).
+"""Score-SDE mel refiner (``ttsx/models/refiner.py``).
 
 mel0 [B, T, 80] + prosody [B, T, 18] + style_id [B] + text_emb [B, T, Dt]
--> RefinerOutput(mel_ref, score, mel_vq). At inference t = 0.5. Each mel
-band runs a U-stack of S4 / MoE / TFBlock (levels deep) with long skips;
-the HSF correction is scaled by the learned beta(t); the residual VQ runs
-beside the continuous path as the discrete-code head. ``sde_sample`` is
-not ported yet.
+-> RefinerOutput(mel_ref, score, mel_vq, vq_loss). At inference t = 0.5.
+Each mel band runs a U-stack of S4 / MoE / TFBlock (levels deep) with
+long skips; the HSF correction is scaled by the learned beta(t); the
+residual VQ runs beside the continuous path as the discrete-code head.
+A training forward (``draws`` given) runs the S4 dropouts, the Gumbel
+gates and their dropout, and advances the VQ's EMA codebooks in place.
+``sde_sample`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 
 from ttsx_torch.core.config import RefinerConfig
 from ttsx_torch.nn.conv import Conv1d
+from ttsx_torch.nn.draws import Draws
 from ttsx_torch.nn.embed import sinusoidal_table
 from ttsx_torch.nn.layers import Dense, Embed, gelu
 from ttsx_torch.nn.moe import GumbelMoE
@@ -29,6 +32,7 @@ class RefinerOutput(NamedTuple):
     mel_ref: torch.Tensor   # [B, T, 80] refined mel
     score: torch.Tensor     # [B, T, 80] correction mel_ref - mel0
     mel_vq: torch.Tensor    # [B, T, 80] discrete-code reconstruction
+    vq_loss: Optional[torch.Tensor] = None  # commitment loss (scalar)
 
 
 class BetaScheduler(nn.Module):
@@ -65,23 +69,23 @@ class BandNet(nn.Module):
             setattr(self, f"up_tf_{lvl}",
                     TFBlock(ch, heads=cfg.s4.heads, dim_ff=cfg.cond_dim))
             setattr(self, f"up_s4_{lvl}", S4(ch, cfg.s4))
-        self.band_out = Conv1d(ch + in_ch, band_size, 3)
+        self.band_out = Conv1d(ch + in_ch, band_size, 3, zero_init=True)
 
-    def forward(self, y, style):
+    def forward(self, y, style, draws: Draws | None = None):
         band_in = y
         skips = []
         for lvl in range(self.levels):
-            y = getattr(self, f"down_s4_{lvl}")(y)
-            y = getattr(self, f"down_moe_{lvl}")(y, style)
+            y = getattr(self, f"down_s4_{lvl}")(y, draws)
+            y = getattr(self, f"down_moe_{lvl}")(y, style, draws)
             y = getattr(self, f"down_tf_{lvl}")(y)
             skips.append(y)
-        y = self.mid_s4(y)
+        y = self.mid_s4(y, draws)
         for lvl in range(self.levels):
             y = getattr(self, f"up_proj_{lvl}")(y)
             y = y + getattr(self, f"skip_proj_{lvl}")(
                 skips[self.levels - 1 - lvl])
             y = getattr(self, f"up_tf_{lvl}")(y)
-            y = getattr(self, f"up_s4_{lvl}")(y)
+            y = getattr(self, f"up_s4_{lvl}")(y, draws)
         return self.band_out(torch.cat([y, band_in], dim=-1))
 
 
@@ -107,13 +111,15 @@ class ScoreSDERefiner(nn.Module):
             persistent=False)
 
     def forward(self, mel0, prosody, style_id, text_emb,
-                t: Optional[torch.Tensor] = None) -> RefinerOutput:
+                t: Optional[torch.Tensor] = None,
+                draws: Draws | None = None) -> RefinerOutput:
         cfg = self.cfg
         B, T, C = mel0.shape
         if C != cfg.cnf_dim:
             raise ValueError(f"mel has {C} channels, expected {cfg.cnf_dim}")
         if t is None:
-            t = mel0.new_full((B, 1), 0.5)
+            t = (mel0.new_full((B, 1), 0.5) if draws is None
+                 else draws.uniform((B, 1)))
         beta = self.BetaScheduler_0(t)                          # [B, 1]
         c_pros = self.Dense_1(F.silu(self.Dense_0(prosody)))
         style = self.style_embedding(style_id)
@@ -125,9 +131,10 @@ class ScoreSDERefiner(nn.Module):
             pe_tok = getattr(self, f"pe_proj_{i}")(
                 self.pe[offset:offset + bsz].reshape(-1))
             y = torch.cat([band, pe_tok + cond], dim=-1)
-            outs.append(getattr(self, f"band_{i}")(y, style))
+            outs.append(getattr(self, f"band_{i}")(y, style, draws))
             offset += bsz
         merged = torch.cat(outs, dim=-1)
         delta = merged + beta[:, :, None] * self.hsf(merged)
+        dq, vq_loss = self.vq.quantize(delta, train=draws is not None)
         return RefinerOutput(mel_ref=mel0 + delta, score=delta,
-                             mel_vq=mel0 + self.vq(delta))
+                             mel_vq=mel0 + dq, vq_loss=vq_loss)

@@ -4,6 +4,8 @@
 linear maps: query/key/value kernels [D, H, D/H] become [H*D/H, D] torch
 weights, the out kernel [H, D/H, D] becomes [D, H*D/H]. Scores use
 explicit f32 matmuls, with the query scaled by 1/sqrt(D/H) as flax does.
+In a training forward (``draws`` given) the attention weights take
+flax's broadcast dropout: one [Tq, Tk] mask shared by batch and heads.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ttsx_torch.nn.draws import Draws
 from ttsx_torch.nn.layers import Dense
 
 
@@ -34,16 +37,18 @@ class MHSA(nn.Module):
     """Multi-head attention over [B, T, D]; keys and values from ``kv``."""
     flax_inner = "MultiHeadDotProductAttention_0"
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.query = _HeadsIn(dim, dim)
         self.key = _HeadsIn(dim, dim)
         self.value = _HeadsIn(dim, dim)
         self.out = _HeadsOut(dim, dim)
 
     def forward(self, q_in: torch.Tensor,
-                kv_in: torch.Tensor | None = None) -> torch.Tensor:
+                kv_in: torch.Tensor | None = None,
+                draws: Draws | None = None) -> torch.Tensor:
         kv_in = q_in if kv_in is None else kv_in
         B, Tq, D = q_in.shape
         H = self.num_heads
@@ -52,6 +57,10 @@ class MHSA(nn.Module):
         k = heads(self.key(kv_in))
         v = heads(self.value(kv_in))
         attn = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
+        if draws is not None and self.dropout > 0.0:
+            keep_prob = 1.0 - self.dropout
+            keep = draws.bernoulli(keep_prob, (1, 1) + tuple(attn.shape[-2:]))
+            attn = attn * (keep.float() / keep_prob)
         o = (attn @ v).transpose(1, 2).reshape(B, Tq, D)
         return self.out(o)
 

@@ -1,6 +1,7 @@
 """Conformer layer (``ttsx/nn/conformer.py``): post-norm MHA with the
 positional embedding added to the query, GLU conv module, ReLU FFN.
-LayerNorm eps is flax's 1e-6."""
+LayerNorm eps is flax's 1e-6. A training forward (``draws`` given) drops
+out the attention weights, the attention output and both FFN stages."""
 from __future__ import annotations
 
 import torch
@@ -8,14 +9,16 @@ from torch import nn
 
 from ttsx_torch.nn.attention import MHSA
 from ttsx_torch.nn.conv import Conv1d
+from ttsx_torch.nn.draws import Draws, dropout
 from ttsx_torch.nn.layers import Dense, LayerNorm
 
 
 class ConformerLayer(nn.Module):
     def __init__(self, d_model: int, num_heads: int = 4, ff_dim: int = 512,
-                 kernel_size: int = 5):
+                 kernel_size: int = 5, dropout: float = 0.1):
         super().__init__()
-        self.MHSA_0 = MHSA(d_model, num_heads)
+        self.dropout = dropout
+        self.MHSA_0 = MHSA(d_model, num_heads, dropout)
         self.LayerNorm_0 = LayerNorm(d_model)
         self.Conv1d_0 = Conv1d(d_model, 2 * d_model, kernel_size)
         self.Conv1d_1 = Conv1d(d_model, d_model, 1)
@@ -25,10 +28,14 @@ class ConformerLayer(nn.Module):
         self.LayerNorm_2 = LayerNorm(d_model)
 
     def forward(self, x: torch.Tensor,
-                pos_emb: torch.Tensor | None = None) -> torch.Tensor:
+                pos_emb: torch.Tensor | None = None,
+                draws: Draws | None = None) -> torch.Tensor:
         pos = x if pos_emb is None else pos_emb
-        x = self.LayerNorm_0(x + self.MHSA_0(x + pos, x))
+        p = self.dropout
+        attn = self.MHSA_0(x + pos, x, draws)
+        x = self.LayerNorm_0(x + dropout(attn, p, draws))
         a, b = self.Conv1d_0(x).chunk(2, dim=-1)
         x = self.LayerNorm_1(x + self.Conv1d_1(a * torch.sigmoid(b)))
-        f = self.Dense_1(torch.relu(self.Dense_0(x)))
+        f = dropout(torch.relu(self.Dense_0(x)), p, draws)
+        f = dropout(self.Dense_1(f), p, draws)
         return self.LayerNorm_2(x + f)

@@ -27,13 +27,16 @@ def same_pads(t: int, k: int, stride: int = 1, dilation: int = 1):
 
 
 class Conv1d(nn.Module):
-    """SAME/CAUSAL/VALID conv; weight [Cout, Cin/groups, k]."""
+    """SAME/CAUSAL/VALID conv; weight [Cout, Cin/groups, k]. ``zero_init``
+    marks a kernel that a fresh init sets to zero (``nn.init.fresh_init_``)."""
     flax_inner = "Conv_0"
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 1,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
-                 padding: str = "SAME", use_bias: bool = True):
+                 padding: str = "SAME", use_bias: bool = True,
+                 zero_init: bool = False):
         super().__init__()
+        self.zero_init = zero_init
         self.kernel_size, self.stride = kernel_size, stride
         self.dilation, self.groups, self.padding = dilation, groups, padding
         self.weight = nn.Parameter(

@@ -1,5 +1,5 @@
-"""FiLM-conditioned residual conv block (``ttsx/nn/film.py``) at
-inference: dropout and stochastic depth are the identity."""
+"""FiLM-conditioned residual conv block (``ttsx/nn/film.py``). Dropout
+and stochastic depth act only in a training forward (``draws`` given)."""
 from __future__ import annotations
 
 import torch
@@ -7,6 +7,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ttsx_torch.nn.conv import Conv1d
+from ttsx_torch.nn.draws import Draws, dropout
 from ttsx_torch.nn.layers import Dense
 
 
@@ -25,10 +26,15 @@ class ScaleNorm(nn.Module):
 
 class ResidualConvBlock(nn.Module):
     """ScaleNorm -> causal depthwise + pointwise conv -> ScaleNorm + SiLU ->
-    FiLM(cond) -> LayerScale -> residual. x [B, T, C]; cond [B, T, Dc]."""
+    FiLM(cond) -> dropout -> LayerScale -> stochastic depth (per-sample
+    drop of the branch with probability ``sd_prob``) -> residual.
+    x [B, T, C]; cond [B, T, Dc]."""
 
-    def __init__(self, channels: int, cond_dim: int, kernel_size: int = 5):
+    def __init__(self, channels: int, cond_dim: int, kernel_size: int = 5,
+                 dropout: float = 0.1, sd_prob: float = 0.0,
+                 ls_init: float = 1e-4):
         super().__init__()
+        self.dropout, self.sd_prob, self.ls_init = dropout, sd_prob, ls_init
         self.ScaleNorm_0 = ScaleNorm(channels)
         self.Conv1d_0 = Conv1d(channels, channels, kernel_size,
                                groups=channels, padding="CAUSAL")
@@ -36,10 +42,17 @@ class ResidualConvBlock(nn.Module):
         self.ScaleNorm_1 = ScaleNorm(channels)
         self.Dense_0 = Dense(cond_dim, channels)
         self.Dense_1 = Dense(channels, 2 * channels)
-        self.gamma = nn.Parameter(torch.full((channels,), 1e-4))
+        self.gamma = nn.Parameter(torch.full((channels,), ls_init))
 
-    def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cond: torch.Tensor,
+                draws: Draws | None = None) -> torch.Tensor:
         y = self.Conv1d_1(self.Conv1d_0(self.ScaleNorm_0(x)))
         y = F.silu(self.ScaleNorm_1(y))
         scale, shift = self.Dense_1(F.silu(self.Dense_0(cond))).chunk(2, -1)
-        return x + self.gamma * (y * (1.0 + scale) + shift)
+        y = self.gamma * dropout(y * (1.0 + scale) + shift, self.dropout,
+                                 draws)
+        if draws is not None and self.sd_prob > 0.0:
+            keep = 1.0 - self.sd_prob
+            mask = draws.bernoulli(keep, (x.shape[0], 1, 1))
+            y = y * (mask.float() / keep)
+        return x + y

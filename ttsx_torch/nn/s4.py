@@ -3,7 +3,9 @@
 The depthwise long convolution runs spectrally with ``torch.fft`` over
 the materialized decay kernel, which is the path ``kernel_mode="auto"``
 takes in the reference. The recurrent forms ('scan', and the Pallas
-kernel K4 behind 'pallas') are not ported yet.
+kernel K4 behind 'pallas') are not ported yet. A training forward
+(``draws`` given) drops out the gated branch and, with one mask per
+(batch, channel) shared over time, the low-rank residual.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch.nn.functional as F
 
 from ttsx_torch.core.config import S4Config
 from ttsx_torch.nn.conv import Conv1d
+from ttsx_torch.nn.draws import Draws, dropout
 from ttsx_torch.nn.layers import GroupNorm, LayerNorm
 
 
@@ -70,7 +73,8 @@ class S4(nn.Module):
         self.Conv1d_1 = Conv1d(d_model, 2 * d_model, 1)
         self.GroupNorm_0 = GroupNorm(cfg.norm_groups, d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, draws: Draws | None = None
+                ) -> torch.Tensor:
         cfg = self.cfg
         _, T, C = x.shape
         c_full = (torch.einsum("hdr,hre->hde", self.C1, self.C2)
@@ -84,6 +88,7 @@ class S4(nn.Module):
         y = y + pb.repeat_interleave(self.d, dim=0).T[None]
         y = self.Conv1d_0(y)
         a_g, b_g = self.Conv1d_1(y).chunk(2, dim=-1)
-        y = a_g * F.silu(b_g)
-        y = y + (h @ self.V.reshape(C, -1)) @ self.U.reshape(C, -1).T
+        y = dropout(a_g * F.silu(b_g), cfg.dropout, draws)
+        res = (h @ self.V.reshape(C, -1)) @ self.U.reshape(C, -1).T
+        y = y + dropout(res, cfg.dropout, draws, broadcast_dims=(1,))
         return self.GroupNorm_0(y)

@@ -1,18 +1,27 @@
-"""Residual hierarchical VQ (``ttsx/nn/vq.py``), argmin inference only.
+"""Residual hierarchical VQ (``ttsx/nn/vq.py``).
 
 The codebooks live in the ``vq_stats`` collection of the reference as EMA
 statistics; the codebook is ``embed_sum / max(cluster_size, eps)``. Both
-are buffers here, filled from that collection by ``weights.from_flax``.
+are buffers here (filled from that collection by ``weights.from_flax``),
+so no optimizer ever steps them. ``quantize(x, train=True)`` advances
+them in place, as the reference's training forward does: an EMA k-means
+step (decay 0.95) on the codes the batch chose, then a restart of every
+code whose EMA usage fell below ``dead_thresh`` from a batch row picked
+by a prime stride. The quantized value and the 0.25-weighted commitment
+loss read the codebook from before the update.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
 
 
 class VectorQuantizer(nn.Module):
+    decay = 0.95        # EMA decay of the codebook statistics
+    dead_thresh = 0.1   # EMA usage below which a code is restarted
+
     def __init__(self, dim: int, num_codes: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
@@ -22,18 +31,42 @@ class VectorQuantizer(nn.Module):
     def codebook(self) -> torch.Tensor:
         return self.embed_sum / self.cluster_size.clamp_min(self.eps)[:, None]
 
+    def quantize(self, x: torch.Tensor, train: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x [..., C] -> (straight-through quantized x, commitment loss)."""
+        with torch.no_grad():
+            cb = self.codebook()
+            flat = x.detach().reshape(-1, x.shape[-1]).float()
+            dist = (flat.square().sum(1, keepdim=True) - 2.0 * flat @ cb.T
+                    + cb.square().sum(1)[None, :])
+            idx = dist.argmin(dim=1)
+            quant = cb[idx].reshape(x.shape).to(x.dtype)
+            if train:
+                self._ema_update(flat, idx)
+        commit = (quant - x).square().mean()
+        return x + (quant - x).detach(), 0.25 * commit
+
+    def _ema_update(self, flat: torch.Tensor, idx: torch.Tensor) -> None:
+        k = self.cluster_size.shape[0]
+        onehot = torch.nn.functional.one_hot(idx, k).float()
+        d = self.decay
+        self.cluster_size.mul_(d).add_((1 - d) * onehot.sum(0))
+        self.embed_sum.mul_(d).add_((1 - d) * (onehot.T @ flat))
+        rows = (torch.arange(k, device=flat.device) * 7919) % flat.shape[0]
+        dead = self.cluster_size < self.dead_thresh
+        self.cluster_size.copy_(torch.where(
+            dead, torch.ones_like(self.cluster_size), self.cluster_size))
+        self.embed_sum.copy_(torch.where(dead[:, None], flat[rows],
+                                         self.embed_sum))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cb = self.codebook()
-        flat = x.reshape(-1, x.shape[-1])
-        dist = (flat.square().sum(1, keepdim=True) - 2.0 * flat @ cb.T
-                + cb.square().sum(1)[None, :])
-        quant = cb[dist.argmin(dim=1)].reshape(x.shape)
-        return x + (quant - x)
+        return self.quantize(x)[0]
 
 
 class HierVQ(nn.Module):
-    """Stage k quantizes what stages 1..k-1 missed; returns the summed
-    reconstruction (as x + (recon - x), the straight-through value)."""
+    """Stage k quantizes what stages 1..k-1 missed; the output is
+    x + (summed reconstruction - x) with the gradient of x alone, and the
+    loss is the sum of the stages' commitment losses."""
 
     def __init__(self, dims: Sequence[int], codes: Sequence[int]):
         super().__init__()
@@ -41,10 +74,16 @@ class HierVQ(nn.Module):
         for i, (d, k) in enumerate(zip(dims, codes)):
             setattr(self, f"stage_{i}", VectorQuantizer(d, k))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def quantize(self, x: torch.Tensor, train: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         residual, recon = x, torch.zeros_like(x)
+        total = x.new_zeros(())
         for i in range(self.n):
-            q = getattr(self, f"stage_{i}")(residual)
+            q, loss = getattr(self, f"stage_{i}").quantize(residual, train)
             recon = recon + q
-            residual = residual - q
-        return x + (recon - x)
+            residual = residual - q.detach()
+            total = total + loss
+        return x + (recon - x).detach(), total
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.quantize(x)[0]

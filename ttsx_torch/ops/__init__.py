@@ -5,11 +5,13 @@ version for a CPU tensor, and raises on anything else; there is no
 fallback from the card to PyTorch. ``launches`` on each wrapper counts
 kernel launches.
 """
+from ttsx_torch.ops.mel_frontend import log_mel, log_mel_plain
 from ttsx_torch.ops.resblock_stack import (film_resblock_stack,
                                            film_resblock_stack_plain)
 from ttsx_torch.ops.upsample import convt_upsample, convt_upsample_plain
 
-KERNELS = {"upsample": convt_upsample, "resblock_stack": film_resblock_stack}
+KERNELS = {"upsample": convt_upsample, "resblock_stack": film_resblock_stack,
+           "mel_frontend": log_mel}
 
 
 def reset_launches() -> None:

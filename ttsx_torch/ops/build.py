@@ -33,6 +33,7 @@ SIGNATURES = {
     "upsample": {"ttsx_upsample_f32": [_P] * 4 + [_I] * 5 + [_P]},
     "resblock_stack": {
         "ttsx_resblock_stack_f32": [_P] * 7 + [_I] * 10 + [_P]},
+    "mel_frontend": {"ttsx_mel_frontend_f32": [_P] * 5 + [_I] * 5 + [_P]},
 }
 
 _LOCK = threading.Lock()
