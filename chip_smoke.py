@@ -12,12 +12,20 @@ Run from the root of a checkout. Phases, one JSON line each:
    their plain PyTorch versions on the card, at the four generator stage
    shapes of one 10 s request (864 mel frames, 4 bands folded into the
    batch: B*4 = 4) and of the serving bucket (4 requests: B*4 = 16),
-   within stated tolerances.
+   within stated tolerances. On the zoo's own weights (the pipeline
+   loaded with the refiner's S4 layers in ``kernel_mode="pallas"``): K4
+   (the S4 recurrence) against ``scan_dw_conv`` at the refiner's 15 S4
+   layer shapes, T = 864, batch 1 and 4, on LayerNorm-scale noise; K5
+   (one FiLM resblock) against its plain version at the 12 generator
+   block shapes of batch 1 and 4; per stage, three K5 launches against
+   one K2 launch on the same input and weights.
 3b. mel_frontend: K3 (the collator's log-mel) against its plain version
    on a batch of 16 wavs of 1.5-4.4 s (tones and noise, zero-padded to
    the trainer's largest bucket, 98,304 samples) and on one 10 s clip:
    the worst error overall within a stated tolerance, and on the frames
-   that read only zeros (reflect padding included) within 1e-5.
+   that read only zeros (reflect padding included) within 1e-5. Beside
+   the gate, K3's and the plain version's distance from a float64
+   log-mel computed on the host (tone rows, noise rows, the clip).
 4. serve: ``serve_from_zoo(device="cuda", bf16=False, max_batch=4,
    frames=864)`` on the checked-in zoo model serves 3 requests (864, 600,
    300 frames, made from ``--seed``): finite, non-silent waveforms of
@@ -25,6 +33,16 @@ Run from the root of a checkout. Phases, one JSON line each:
    K1 and K2 ran 4 times each; the same requests through the generator
    with both kernel flags off (plain PyTorch on the card) give the same
    waveforms within a stated tolerance.
+4b. sde: the zoo loaded with the refiner's S4 layers in ``pallas`` (K4)
+   and in ``fft`` mode synthesizes with ``use_sde=True`` on the same
+   noise one 864-frame request and the 3-request bucket: finite,
+   non-silent waveforms of ``len * 256`` samples; per synthesize call K4
+   launches 8 passes x 15 layers = 120 times, K1 and K2 4, K3 and K5 0,
+   and the fft pipeline no K4; the two routes agree on ``mel_ref`` and
+   the waveform within stated tolerances. The generator's per-block route
+   (every block on K5: 12 launches, no K2) on the request's refined mel
+   agrees with the K2 route. ``main_synth --zoo --sde --frames 864
+   --device cuda`` writes one wav and prints its JSON line.
 5. train: a seeded wav tree (32 utterances of 1.5-4 s: 4 speakers x 2
    domains x 2 styles, with transcripts) through the trainer's path at
    the full width of ``tts_cfg()`` (batch 16, 2 micro-batches a step,
@@ -46,12 +64,23 @@ Run from the root of a checkout. Phases, one JSON line each:
    collated, with the peak memory each of K3's versions takes beyond
    its input), K1's library call (``F.conv_transpose1d``, timed here
    only), each kernel's bound from bytes and f32 operations, the model
-   stages, and one 10 s request end to end.
+   stages, and one 10 s request end to end. K4 per S4 layer shape
+   (batch 1 and 4) beside its plain version, the fft route's time at the
+   same shape (``ssm_kernel`` + ``fft_dw_conv``) and its bound, K4 and
+   the fft route both replayed from a CUDA graph (device time; their
+   short kernels make eager event timing read the host) and eager; K5 per
+   block shape beside its plain version and bound, and three K5 launches
+   against one K2 launch per stage; at batch 1 one refiner pass and
+   ``sde_sample`` in each mode, the generator's K2 and per-block routes,
+   and SDE requests end to end in each mode.
 
 Then the ``{"kernels": [...]}`` line (K1 and K2 at the serving bucket's
 shapes: ``ms`` and the bounds summed over the four stage calls of one
 forward, launches on the served forward; K3 at the largest collated
-batch, launches over the training run, one per collated batch),
+batch, launches over the training run, one per collated batch; K4 summed
+over the 120 layer calls of one SDE synthesize call at batch 1 (``ms``
+from graph replay), launches per call; K5 summed over the 12 blocks of
+the per-block generator route at batch 1, launches on that route),
 the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero without the ``ok`` line. Without a CUDA card, or without the
@@ -88,6 +117,15 @@ K3_TOL = (1e-4, 1e-4)   # log-mel; 3.8e-6 measured (f32 DFT sums in another orde
 K3_TAIL_TOL = 1e-5      # frames that see only zero padding: exact zeros
 TRAIN_STEPS = 6
 XDEV_RTOL = 1e-4        # first-step losses, card vs CPU, same draws
+K4_TOL = (1e-4, 1e-4)   # the S4 recurrence; 5.4e-7 measured
+K5_TOL = (1e-4, 1e-4)   # one FiLM resblock; 6.7e-6 measured
+STAGE_TOL = K2_TOL      # three K5 launches against one K2 launch per stage
+SDE_MEL_TOL = 1e-4      # max |mel_ref(K4) - mel_ref(fft)|; 3.6e-7 measured
+SDE_WAV_TOL = WAV_TOL   # the same waveforms, and K5's route vs K2's;
+                        # 5.6e-8 measured
+SDE_REPEATS = 3         # end-to-end SDE requests timed per mode
+SERVE_LAUNCHES = {"upsample": 4, "resblock_stack": 4, "mel_frontend": 0,
+                  "s4_scan": 0, "resblock": 0}   # one served forward
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -124,6 +162,23 @@ def cuda_ms(fn, target_ms: float = 150.0) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean ms of ``fn`` on the card replayed from one CUDA graph of
+    ``reps`` calls: the device's time without the host's cost of issuing
+    each call, which event timing of eager calls reads for short kernels."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(g.replay) / reps
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -369,6 +424,437 @@ def time_mel(audio, x):
                 peak_extra_mb_k3=extra["k3"], peak_extra_mb_plain=extra["plain"])
 
 
+def log_mel_f64(wav, audio):
+    """The float64 log-mel of ``wav`` [B, N] (numpy) on the host: K3's
+    reflect padding, window, filterbank and floors (1e-12 under the
+    magnitude, 1e-5 under the log), the DFT by numpy's float64 FFT."""
+    import numpy as np
+    from ttsx_torch.dsp.stft import mel_filterbank, padded_window
+    n_fft, hop = audio.n_fft, audio.hop_length
+    x = np.pad(wav.astype(np.float64), ((0, 0), (n_fft // 2, n_fft // 2)),
+               mode="reflect")
+    frames = np.lib.stride_tricks.sliding_window_view(x, n_fft, axis=1)
+    win = padded_window(audio).astype(np.float64)
+    spec = np.fft.rfft(frames[:, ::hop] * win, axis=-1)
+    mag = np.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-12)
+    fb = mel_filterbank(audio.sample_rate, n_fft, audio.n_mels, audio.f_min,
+                        audio.f_max).astype(np.float64)
+    return np.log(mag @ fb + 1e-5)
+
+
+def mel_f64_report(audio, wav, clip):
+    """K3's and the plain version's distance from the float64 log-mel, on
+    the frames that read some signal: tone rows, noise rows, the clip. A
+    report beside K3's gate, not a gate."""
+    import numpy as np
+    import torch
+    from ttsx_torch.ops.mel_frontend import log_mel, log_mel_plain
+    out = {}
+    for name, batch in (("batch", wav), ("clip", clip)):
+        x = torch.as_tensor(batch, device="cuda")
+        ref = log_mel_f64(batch, audio)
+        live = ~silent_frames(x, audio).cpu().numpy()
+        for route, fn in (("k3", log_mel), ("plain", log_mel_plain)):
+            d = np.abs(fn(x, audio).cpu().numpy().astype(np.float64) - ref)
+            d = np.where(live[..., None], d, 0.0)
+            if name == "clip":
+                out[f"{route}_noise_clip"] = float(d.max())
+            else:
+                out[f"{route}_tones"] = float(d[0::2].max())
+                out[f"{route}_noise"] = float(d[1::2].max())
+    return out
+
+
+# --------------------------------------------------------- S4 (K4), K5
+def refiner_s4_layers(refiner):
+    """The refiner's S4 layers in the order a pass runs them: per band
+    down_s4_0, down_s4_1, mid_s4, up_s4_0, up_s4_1."""
+    from ttsx_torch.nn.s4 import S4
+    return [m for m in refiner.modules() if isinstance(m, S4)]
+
+
+def k4_args(layer, batch: int, gen):
+    """LayerNorm-scale noise [batch, FRAMES, C] and the layer's own decays,
+    b (ones) and readout c_full, as the layer hands them to K4."""
+    import torch
+    H, d = layer.a_diag.shape
+    u = torch.randn(batch, FRAMES, H * d, generator=gen).cuda()
+    with torch.no_grad():
+        c = layer.c_full().contiguous()
+    return u, layer.a_diag, torch.ones_like(layer.a_diag), c
+
+
+def k4_cost(B: int, T: int, C: int, d: int, H: int):
+    """Bytes (u read once, y written once, a, b, c_full) and the f32
+    operations of the cheaper of two counts of the same function, with
+    the count's name: the recurrence, 4 B T C d (update and readout), or
+    the materialized kernel plus FFT convolution (decay times b per head,
+    step and mode 2 H T d; the kernel's readout 2 T C d; real FFTs of u,
+    of the kernel and the inverse, 2.5 n log2 n each per channel with n
+    the power of two >= 2T - 1; complex products 6 (n/2 + 1) per channel)."""
+    import math
+    n = 1 << (2 * T - 2).bit_length()
+    rec = 4 * B * T * C * d
+    fft = (2 * H * T * d + 2 * T * C * d + 6 * B * C * (n // 2 + 1)
+           + (2 * B + 1) * C * 2.5 * n * math.log2(n))
+    nbytes = 4 * (2 * B * T * C + 2 * H * d + H * d * (C // H))
+    return nbytes, min(rec, fft), ("recurrence" if rec <= fft else "fft")
+
+
+def check_k4(layers, gen):
+    """K4 against scan_dw_conv at each layer's shape, batch 1 and 4."""
+    import torch
+    from ttsx_torch.ops.s4_scan import s4_scan, scan_dw_conv
+    checks = []
+    for B in (1, MAX_BATCH):
+        for layer in layers:
+            u, a, b, c = k4_args(layer, B, gen)
+            got, ref = s4_scan(u, a, b, c), scan_dw_conv(u, a, b, c)
+            torch.cuda.synchronize()
+            checks.append(dict(shape=[B, FRAMES, u.shape[2], layer.d],
+                               ok=within(got, ref, K4_TOL))
+                          | dict(zip(("max_abs_err", "max_rel_err"),
+                                     err(got, ref))))
+    return checks
+
+
+def per_block_generator(pipe):
+    """A copy of ``pipe``'s generator on the per-block route: the upsample
+    on K1, every FiLMResidualBlock with ``use_pallas`` (K5), no K2."""
+    import dataclasses
+    from ttsx_torch.models.vocoder import FiLMResidualBlock, Generator
+    c = pipe.cfg
+    vc = dataclasses.replace(c.vocoder, use_pallas_resblock_stack=False)
+    gen = Generator(vc, c.acoustic.cond_dim, c.acoustic.emotion_dim)
+    gen.load_state_dict(pipe.generator.state_dict())
+    for m in gen.modules():
+        if isinstance(m, FiLMResidualBlock):
+            m.use_pallas = True
+    return gen.to("cuda").eval()
+
+
+def k5_stages(gen_module, batch: int, gen):
+    """Per generator stage at one 10 s request's shape for ``batch``
+    requests: x [4B, T, C], the stage's blocks (zoo weights), each block's
+    full-rate scale and shift from a LayerNorm-scale conditioning [B,
+    FRAMES, cond_dim], and K2's mel-rate film and stacked weights."""
+    import torch
+    from ttsx_torch.ops.resblock_stack import nearest_rows
+    vc = gen_module.cfg
+    tower = gen_module.band_tower.tower
+    out = []
+    with torch.no_grad():
+        cond = torch.randn(batch, FRAMES, vc.cond_dim, generator=gen).cuda()
+        for i, s in enumerate(stage_shapes(vc, FRAMES, batch)):
+            T, C = s["T"] * s["f"], s["cout"]
+            blocks = [getattr(tower, f"res_{i}_{j}")
+                      for j in range(len(vc.res_dilations))]
+            x = torch.randn(s["B"], T, C, generator=gen).cuda()
+            rows = nearest_rows(T, FRAMES, x.device)
+            films = [b.Dense_0(cond) for b in blocks]
+            k5 = []
+            for blk, film in zip(blocks, films):
+                sc, sh = film[:, rows].repeat(s["B"] // batch, 1,
+                                              1).chunk(2, -1)
+                k5.append((sc.contiguous(), sh.contiguous(),
+                           *(w.detach().contiguous()
+                             for w in blk.kernel_weights()), blk.dilation))
+            k2 = (torch.cat(films, -1).contiguous(),
+                  *(torch.stack(ws).contiguous() for ws in
+                    zip(*(b.kernel_weights() for b in blocks))))
+            out.append(dict(x=x, k5=k5, k2=k2, B=s["B"], T=T, C=C))
+    return out
+
+
+def k5_cost(B: int, T: int, C: int):
+    """Bytes (x, scale, shift read once, y written once, the weights) and
+    f32 operations (the two k=3 convs, 18 C^2 a row) of one block."""
+    return 4 * (4 * B * T * C + 9 * C * C + 3 * C), 18 * B * T * C * C
+
+
+def k5_chain(x, k5):
+    from ttsx_torch.ops.resblock import film_resblock
+    for args in k5:
+        x = film_resblock(x, *args)
+    return x
+
+
+def check_k5(stages):
+    """K5 against its plain version per block, and three K5 launches
+    against K2's one per stage, on the same input and weights."""
+    import torch
+    from ttsx_torch.ops.resblock import film_resblock, film_resblock_plain
+    from ttsx_torch.ops.resblock_stack import film_resblock_stack
+    blocks, per_stage = [], []
+    for st in stages:
+        x = st["x"]
+        for args in st["k5"]:
+            got, ref = film_resblock(x, *args), film_resblock_plain(x, *args)
+            torch.cuda.synchronize()
+            blocks.append(dict(shape=[st["B"], st["T"], st["C"], args[-1]],
+                               ok=within(got, ref, K5_TOL))
+                          | dict(zip(("max_abs_err", "max_rel_err"),
+                                     err(got, ref))))
+        dil = tuple(a[-1] for a in st["k5"])
+        k2 = film_resblock_stack(x, *st["k2"], dil)
+        k5 = k5_chain(x, st["k5"])
+        torch.cuda.synchronize()
+        per_stage.append(dict(shape=[st["B"], st["T"], st["C"]],
+                              ok=within(k5, k2, STAGE_TOL))
+                         | dict(zip(("max_abs_err", "max_rel_err"),
+                                    err(k5, k2))))
+    return blocks, per_stage
+
+
+def time_k4(layers, batch: int, gen):
+    """Per S4 layer shape: K4 and the fft route (``ssm_kernel`` +
+    ``fft_dw_conv``; no single PyTorch call computes the function) replayed
+    from a CUDA graph and eager, the plain version eager, and the bound."""
+    from ttsx_torch.nn.s4 import fft_dw_conv, ssm_kernel
+    from ttsx_torch.ops.s4_scan import s4_scan, scan_dw_conv
+    rows = []
+    for layer in layers:
+        u, a, b, c = k4_args(layer, batch, gen)
+        H, d = a.shape
+        nbytes, flops, basis = k4_cost(batch, FRAMES, u.shape[2], d, H)
+        bms, by = bound_ms(nbytes, flops)
+        k4 = lambda: s4_scan(u, a, b, c)
+        fft = lambda: fft_dw_conv(u, ssm_kernel(a, b, c, FRAMES), True)
+        rows.append(dict(
+            shape=[batch, FRAMES, u.shape[2], d],
+            ms=graph_ms(k4), eager_ms=cuda_ms(k4),
+            plain_ms=cuda_ms(lambda: scan_dw_conv(u, a, b, c)),
+            fft_ms=graph_ms(fft), fft_eager_ms=cuda_ms(fft),
+            library_ms=None, bound_ms=bms, bound_by=by, bound_count=basis,
+            gflop=flops / 1e9, mbytes=nbytes / 1e6))
+    return rows
+
+
+def time_k5(stages):
+    """Per block shape: K5 and plain ms and the bound; per stage: three
+    K5 launches against K2's one."""
+    from ttsx_torch.ops.resblock import film_resblock, film_resblock_plain
+    from ttsx_torch.ops.resblock_stack import film_resblock_stack
+    blocks, per_stage = [], []
+    for st in stages:
+        x = st["x"]
+        for args in st["k5"]:
+            nbytes, flops = k5_cost(st["B"], st["T"], st["C"])
+            bms, by = bound_ms(nbytes, flops)
+            blocks.append(dict(
+                shape=[st["B"], st["T"], st["C"], args[-1]],
+                ms=cuda_ms(lambda: film_resblock(x, *args)),
+                plain_ms=cuda_ms(lambda: film_resblock_plain(x, *args)),
+                library_ms=None, bound_ms=bms, bound_by=by,
+                gflop=flops / 1e9, mbytes=nbytes / 1e6))
+        dil = tuple(a[-1] for a in st["k5"])
+        per_stage.append(dict(
+            shape=[st["B"], st["T"], st["C"]],
+            k5x3_ms=cuda_ms(lambda: k5_chain(x, st["k5"])),
+            k2_ms=cuda_ms(lambda: film_resblock_stack(x, *st["k2"], dil))))
+    return blocks, per_stage
+
+
+# ---------------------------------------------------------- SDE synthesis
+def sde_cfg(mode: str):
+    """The zoo's config with the refiner's S4 layers in ``mode``."""
+    import dataclasses
+    from ttsx_torch.core.config import zoo_cfg
+    from ttsx_torch.zoo import zoo_info
+    cfg = zoo_cfg(True, zoo_info().get("vocoder_overrides"))
+    s4 = dataclasses.replace(cfg.refiner.s4, kernel_mode=mode)
+    return dataclasses.replace(
+        cfg, refiner=dataclasses.replace(cfg.refiner, s4=s4))
+
+
+def sde_batch(pipe, reqs, batch: int, scale_stats, seed: int):
+    """``reqs`` padded into a bucket of ``batch`` x FRAMES on the card: the
+    five input tensors, the scale conditioning, the request lengths, and
+    the noise of every SDE step from a generator on the card."""
+    import torch
+    from ttsx_torch.serve import SynthesisServer
+    srv = SynthesisServer(pipe, device="cuda", max_batch=batch, frames=FRAMES,
+                          scale_stats=scale_stats.cpu())
+    *arrays, lens = srv.pad_batch(reqs)
+    rc = pipe.cfg.refiner
+    g = torch.Generator("cuda").manual_seed(seed)
+    noise = [torch.randn(batch, FRAMES, rc.cnf_dim, generator=g, device="cuda")
+             for _ in range(rc.sde_steps)]
+    return ([torch.as_tensor(a, device="cuda") for a in arrays],
+            srv.scale_stats.expand(batch, -1), lens, noise)
+
+
+def synth_sde(pipe, arrays, scale, noise):
+    """One SDE synthesize call, the launch counters zeroed just before and
+    read just after: (output, counts)."""
+    import torch
+    from ttsx_torch import ops
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = pipe.synthesize(*arrays, use_sde=True, scale=scale, noise=noise)
+    torch.cuda.synchronize()
+    return out, ops.launch_counts()
+
+
+def check_waves(wav, lens, hop: int, what: str):
+    """Each request's trimmed waveform: finite, not silent, len*hop long."""
+    import numpy as np
+    peaks = []
+    for i, n in enumerate(lens):
+        w = wav[i, :int(n) * hop, 0]
+        if w.shape != (int(n) * hop,) or not np.isfinite(w).all():
+            fail(f"{what}: bad waveform, shape {w.shape}, want "
+                 f"{int(n) * hop} samples, finite "
+                 f"{bool(np.isfinite(w).all())}")
+        peaks.append(float(np.abs(w).max()))
+        if peaks[-1] < SILENT:
+            fail(f"{what}: silent waveform for a {int(n)}-frame request")
+    return peaks
+
+
+def sde_phase(pipe_p, pipe_f, reqs, scale_stats, seed: int):
+    """The zoo's SDE synthesis with the refiner's S4 layers on K4
+    (``pipe_p``) and on the fft route (``pipe_f``), same noise: one
+    864-frame request and the 3-request bucket; the per-block generator
+    route (K5) on the first; ``main_synth --zoo --sde`` once. Returns the
+    phase's fields and the single request's inputs (for timing)."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from ttsx_torch import ops
+    from ttsx_torch.cli.main import main_synth
+    from ttsx_torch.data.dataset import read_wav
+    hop = pipe_p.cfg.vocoder.hop_length
+    steps = pipe_p.cfg.refiner.sde_steps
+    k4_per_call = steps * len(refiner_s4_layers(pipe_p.refiner))
+    want = {"pallas": dict(SERVE_LAUNCHES, s4_scan=k4_per_call),
+            "fft": SERVE_LAUNCHES}
+    fields = dict(steps=steps, launches_per_call=want["pallas"],
+                  tolerance={"mel_ref": SDE_MEL_TOL, "wav": SDE_WAV_TOL},
+                  cases={})
+    for case, rs, batch in (("one", reqs[:1], 1), ("bucket", reqs, MAX_BATCH)):
+        arrays, scale, lens, noise = sde_batch(pipe_p, rs, batch, scale_stats,
+                                               seed)
+        lens = [int(n) for n in lens[:len(rs)]]
+        outs = {}
+        for mode, pipe in (("pallas", pipe_p), ("fft", pipe_f)):
+            t1 = time.perf_counter()
+            out, launches = synth_sde(pipe, arrays, scale, noise)
+            ms = (time.perf_counter() - t1) * 1e3
+            if launches != want[mode]:
+                fail(f"SDE {case} ({mode}): launches {launches}, want "
+                     f"{want[mode]}")
+            wav = out.wav.cpu().numpy()
+            outs[mode] = dict(out=out, wav=wav, ms=ms, launches=launches,
+                              peak=check_waves(wav, lens, hop,
+                                               f"SDE {case} ({mode})"))
+        p, f = outs["pallas"], outs["fft"]
+        mel_err = max(float((p["out"].mel_ref[i, :n] - f["out"].mel_ref[i, :n])
+                            .abs().max()) for i, n in enumerate(lens))
+        wav_err = max(float(np.abs(p["wav"][i, :n * hop]
+                                   - f["wav"][i, :n * hop]).max())
+                      for i, n in enumerate(lens))
+        sde_move = float((p["out"].mel_ref - p["out"].mel0).abs().max())
+        fields["cases"][case] = dict(
+            batch=batch, requests=lens, launches_pallas=p["launches"],
+            launches_fft=f["launches"],
+            first_call_ms={m: o["ms"] for m, o in outs.items()},
+            peak={m: o["peak"] for m, o in outs.items()},
+            mel_ref_max_abs_diff=mel_err, wav_max_abs_diff=wav_err,
+            mel_ref_minus_mel0_max=sde_move)
+        if mel_err > SDE_MEL_TOL or wav_err > SDE_WAV_TOL:
+            fail(f"SDE {case}: the pallas and fft routes differ by "
+                 f"{mel_err} (mel_ref) / {wav_err} (wav)")
+        if case == "one":
+            one = (arrays, scale, noise)
+            mel_ref, wav_k2 = p["out"].mel_ref, p["out"].wav
+    # the generator's per-block route (K5) on the single request's mel
+    text, pros, emo, spk, sid = one[0]
+    gen_pb = per_block_generator(pipe_p)
+    vc = pipe_p.cfg.vocoder
+    want_pb = dict(SERVE_LAUNCHES, resblock_stack=0, resblock=len(
+        vc.upsample_factors) * len(vc.res_dilations))
+    with torch.inference_mode():
+        style = pipe_p.gst(mel_ref)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        wav_pb = gen_pb(mel_ref, pros, style, emo, scale=one[1])
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    pb_err = float((wav_pb - wav_k2).abs().max())
+    fields["per_block_route"] = dict(launches=launches,
+                                     wav_max_abs_diff_vs_k2_route=pb_err)
+    if launches != want_pb:
+        fail(f"per-block generator route: launches {launches}, want {want_pb}")
+    if pb_err > SDE_WAV_TOL:
+        fail(f"per-block route (K5) differs from K2's by {pb_err}")
+    # the command line, once
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "synth.wav"
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main_synth(["--zoo", "--sde", "--frames", str(FRAMES),
+                             "--device", "cuda", "--out", str(path),
+                             "--seed", str(seed)])
+        cli_s = time.perf_counter() - t1
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        wav, sr = read_wav(path)
+    fields["main_synth"] = dict(rc=rc, line=line, seconds=cli_s,
+                                file_samples=int(wav.shape[0]), sr=sr,
+                                peak=float(np.abs(wav).max()))
+    if (rc != 0 or line.get("wav") != str(path)
+            or line.get("samples") != FRAMES * hop
+            or wav.shape != (FRAMES * hop,) or not np.abs(wav).max() > SILENT):
+        fail(f"main_synth --zoo --sde: {fields['main_synth']}")
+    return fields, one
+
+
+def time_sde(pipe_p, pipe_f, arrays, scale, noise):
+    """Batch 1, 864 frames: one refiner pass (eager, and replayed from a
+    CUDA graph: its device time) and ``sde_sample`` (8 passes) in each
+    mode, the other stages, the generator's per-block route (K5)
+    against its K2 route, and SDE requests end to end (host clock around
+    ``synthesize`` and the copy of the waveform to the host)."""
+    import numpy as np
+    import torch
+    from ttsx_torch.models.refiner import sde_sample
+    text, pros, emo, spk, sid = arrays
+    gen_pb = per_block_generator(pipe_p)
+    out = {}
+    with torch.inference_mode():
+        mel0 = pipe_p.acoustic(text, pros, emo, speaker=spk).mel
+        t_mid = mel0.new_full((1, 1), 0.5)
+        mel_ref = sde_sample(pipe_p.refiner, mel0, pros, sid, text,
+                             noise=noise)
+        style = pipe_p.gst(mel_ref)
+        out["acoustic_ms"] = cuda_ms(
+            lambda: pipe_p.acoustic(text, pros, emo, speaker=spk))
+        for mode, pipe in (("pallas", pipe_p), ("fft", pipe_f)):
+            ref_pass = lambda: pipe.refiner(mel0, pros, sid, text, t=t_mid)
+            out[f"refiner_pass_ms_{mode}"] = cuda_ms(ref_pass)
+            out[f"refiner_pass_graph_ms_{mode}"] = graph_ms(ref_pass, reps=3)
+            out[f"sde_sample_ms_{mode}"] = cuda_ms(lambda: sde_sample(
+                pipe.refiner, mel0, pros, sid, text, noise=noise))
+        out["gst_ms"] = cuda_ms(lambda: pipe_p.gst(mel_ref))
+        out["generator_k2_route_ms"] = cuda_ms(
+            lambda: pipe_p.generator(mel_ref, pros, style, emo, scale=scale))
+        out["generator_per_block_route_ms"] = cuda_ms(
+            lambda: gen_pb(mel_ref, pros, style, emo, scale=scale))
+    for mode, pipe in (("pallas", pipe_p), ("fft", pipe_f)):
+        e2e = []
+        for _ in range(SDE_REPEATS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pipe.synthesize(*arrays, use_sde=True, scale=scale,
+                            noise=noise).wav.cpu()
+            e2e.append((time.perf_counter() - t1) * 1e3)
+        out[f"e2e_ms_{mode}"] = float(np.median(e2e))
+        out[f"e2e_ms_all_{mode}"] = e2e
+    return out
+
+
 # ------------------------------------------------------------------ training
 def write_wav_tree(root: Path, seed: int, sr: int) -> int:
     """<speaker>/<domain>/<style>/*.wav, 4 x 2 x 2 x 2 = 32 utterances of
@@ -597,7 +1083,7 @@ def main(argv=None) -> int:
     from ttsx_torch.core.device import set_f32_numerics
     from ttsx_torch.ops import build
     from ttsx_torch.serve import SynthesisServer
-    from ttsx_torch.zoo import serve_from_zoo
+    from ttsx_torch.zoo import load_pipeline, serve_from_zoo
 
     set_f32_numerics()
     kind = torch.cuda.get_device_name(0)
@@ -623,13 +1109,31 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     shapes = {b: stage_shapes(vc, FRAMES, b) for b in (1, MAX_BATCH)}
     checks = {b: check_kernels(shapes[b], gen, dil) for b in shapes}
+    # K4 and K5 on the zoo's own weights: the refiner's 15 S4 layers, the
+    # generator's res_{i}_{j} blocks
+    pipe_p, zoo_meta = load_pipeline(sde_cfg("pallas"), device="cuda")
+    s4_layers = refiner_s4_layers(pipe_p.refiner)
+    k4_checks = check_k4(s4_layers, gen)
+    k5_stage_in = {b: k5_stages(pipe_p.generator, b, gen)
+                   for b in (1, MAX_BATCH)}
+    k5_checks = {b: check_k5(k5_stage_in[b]) for b in k5_stage_in}
     emit("kernels", t0, tolerance={"upsample": K1_TOL, "resblock_stack": K2_TOL,
+                                   "s4_scan": K4_TOL, "resblock": K5_TOL,
+                                   "k5x3_vs_k2_per_stage": STAGE_TOL,
                                    "rule": "abs(kernel-plain) <= atol + rtol*abs(plain)"},
-         checks_by_batch=checks)
+         checks_by_batch=checks, s4_scan=k4_checks,
+         resblock_by_batch={b: v[0] for b, v in k5_checks.items()},
+         resblock_stage_vs_k2_by_batch={b: v[1] for b, v in k5_checks.items()})
     bad = sorted({k for c in checks.values() for k, v in c.items()
                   if not all(x["ok"] for x in v)})
+    bad += ["s4_scan"] * (not all(c["ok"] for c in k4_checks))
+    bad += ["resblock"] * (not all(c["ok"] for v in k5_checks.values()
+                                   for c in v[0]))
+    bad += ["resblock x3 vs resblock_stack"] * (
+        not all(c["ok"] for v in k5_checks.values() for c in v[1]))
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
+    del k5_stage_in
 
     # -- 3b. K3 against its plain version on a training batch and a clip
     t0 = time.time()
@@ -638,7 +1142,8 @@ def main(argv=None) -> int:
     mel_check = check_mel(audio, mel_wav, mel_clip)
     emit("mel_frontend", t0, tolerance={"log_mel": K3_TOL,
                                         "silent_abs": K3_TAIL_TOL},
-         lengths=[int(n) for n in mel_lengths], **mel_check)
+         lengths=[int(n) for n in mel_lengths], **mel_check,
+         max_abs_err_vs_float64=mel_f64_report(audio, mel_wav, mel_clip))
     if not mel_check["ok"]:
         fail("K3 disagrees with its plain version")
 
@@ -664,8 +1169,9 @@ def main(argv=None) -> int:
                  f"{bool(np.isfinite(w_).all())}, want {n_ * hop} samples")
         if float(np.abs(w_).max()) < SILENT:
             fail(f"silent waveform for a {n_}-frame request")
-    if launches != {"upsample": 4, "resblock_stack": 4, "mel_frontend": 0}:
-        fail(f"launches on the served forward {launches}, want 4, 4, 0")
+    if launches != SERVE_LAUNCHES:
+        fail(f"launches on the served forward {launches}, want "
+             f"{SERVE_LAUNCHES}")
     plain_pipe = srv.pipe.with_vocoder_kernels(False)
     plain = SynthesisServer(plain_pipe, device="cuda", max_batch=MAX_BATCH,
                             frames=FRAMES, scale_stats=srv.scale_stats.cpu())
@@ -685,6 +1191,14 @@ def main(argv=None) -> int:
     if wav_err > WAV_TOL:
         fail(f"kernel path waveforms differ from the plain path by {wav_err}")
     del plain, wavs_plain
+
+    # -- 4b. SDE synthesis: K4 on the refiner's S4 layers, against fft
+    t0 = time.time()
+    pipe_f, _ = load_pipeline(sde_cfg("fft"), device="cuda")
+    sde, sde_one = sde_phase(pipe_p, pipe_f, reqs, srv.scale_stats,
+                             args.seed)
+    emit("sde", t0, **sde)
+    k5_launches = sde["per_block_route"]["launches"]["resblock"]
 
     # -- 5. the acoustic + refiner trainer on a wav tree, K3 in the collator
     t0 = time.time()
@@ -734,7 +1248,15 @@ def main(argv=None) -> int:
         t1 = time.perf_counter()
         one.serve_batch(reqs[:1])
         e2e.append((time.perf_counter() - t1) * 1e3)
+    k4_rows = {b: time_k4(s4_layers, b, gen) for b in (1, MAX_BATCH)}
+    k5_rows = {b: time_k5(k5_stages(pipe_p.generator, b, gen))
+               for b in (1, MAX_BATCH)}
+    sde_times = time_sde(pipe_p, pipe_f, *sde_one)
     emit("timing", t0, kernels_by_batch=rows, mel_frontend=mel_row,
+         s4_scan_by_batch=k4_rows,
+         resblock_by_batch={b: v[0] for b, v in k5_rows.items()},
+         resblock_stage_vs_k2_by_batch={b: v[1] for b, v in k5_rows.items()},
+         sde_batch1=sde_times,
          collate_ms_median_at_k3_shape=k3_collate_ms,
          k3_share_of_collate=(mel_row["ms"] / k3_collate_ms if same
                               else None),
@@ -772,6 +1294,27 @@ def main(argv=None) -> int:
         ms=mel_row["ms"],
         plain_ms=mel_row["plain_ms"], bound_ms=mel_row["bound_ms"],
         bound_by=mel_row["bound_by"], library_ms=None))
+    # K4: one SDE synthesize call at batch 1 (8 refiner passes of the 15
+    # layer shapes); K5: the per-block generator route at batch 1 (12 blocks)
+    k4_one, (k5_one, _) = k4_rows[1], k5_rows[1]
+    passes = pipe_p.cfg.refiner.sde_steps
+    k4_launches = sde["cases"]["one"]["launches_pallas"]["s4_scan"]
+    for name, src, replaces, n, errs, rows_, scale in (
+            ("s4_scan", "ttsx_torch/ops/csrc/s4_scan.cu",
+             "ttsx/ops/s4_kernel.py:119", k4_launches,
+             [c["max_abs_err"] for c in k4_checks], k4_one, passes),
+            ("resblock", "ttsx_torch/ops/csrc/resblock.cu",
+             "ttsx/ops/resblock_kernel.py:157", k5_launches,
+             [c["max_abs_err"] for v in k5_checks.values() for c in v[0]],
+             k5_one, 1)):
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=n, max_abs_err=max(errs),
+            ms=scale * sum(r["ms"] for r in rows_),
+            plain_ms=scale * sum(r["plain_ms"] for r in rows_),
+            bound_ms=scale * sum(r["bound_ms"] for r in rows_),
+            bound_by=max(rows_, key=lambda r: r["bound_ms"])["bound_by"],
+            library_ms=None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     signal.alarm(0)

@@ -1,6 +1,7 @@
 """Tests that need a CUDA card (``gpu`` marker): the CUDA kernels against
-their plain PyTorch versions, the zoo served through K1 and K2, and K3
-refusing to fall back when its library is missing.
+their plain PyTorch versions, the zoo served through K1 and K2, and K3,
+K4 and K5 refusing to fall back when their library is missing (K4 and K5,
+which are forward-only, also refuse a call that needs a gradient).
 
 Each test skips without a card. This file imports neither JAX nor the
 JAX package, so on a machine without JAX it runs on its own:
@@ -17,8 +18,10 @@ from ttsx_torch import ops
 from ttsx_torch.core.config import AudioConfig
 from ttsx_torch.ops import build
 from ttsx_torch.ops.mel_frontend import log_mel, log_mel_plain
+from ttsx_torch.ops.resblock import film_resblock, film_resblock_plain
 from ttsx_torch.ops.resblock_stack import (film_resblock_stack,
                                            film_resblock_stack_plain)
+from ttsx_torch.ops.s4_scan import s4_scan, scan_dw_conv
 from ttsx_torch.ops.upsample import convt_upsample, convt_upsample_plain
 
 pytestmark = pytest.mark.gpu
@@ -27,6 +30,8 @@ pytestmark = pytest.mark.gpu
 K1_TOL = dict(rtol=1e-5, atol=1e-5)
 K2_TOL = dict(rtol=1e-4, atol=1e-4)
 K3_TOL = dict(rtol=1e-4, atol=1e-4)   # log-mel, as chip_smoke.py states it
+K4_TOL = dict(rtol=1e-4, atol=1e-4)   # as chip_smoke.py states it
+K5_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 @pytest.fixture
@@ -108,7 +113,8 @@ def test_serve_from_zoo_through_kernels(cuda):
     ops.reset_launches()
     outs = srv.serve_batch(reqs)
     assert ops.launch_counts() == {"upsample": 4, "resblock_stack": 4,
-                                   "mel_frontend": 0}
+                                   "mel_frontend": 0, "s4_scan": 0,
+                                   "resblock": 0}
     for o, n in zip(outs, (64, 40)):
         assert o.shape == (n * 256,) and np.isfinite(o).all()
         assert float(np.abs(o).max()) > 1e-3
@@ -163,3 +169,71 @@ def test_mel_frontend_kernel_does_not_fall_back(cuda, monkeypatch):
     with pytest.raises(build.KernelCompileError):
         log_mel(torch.zeros(1, 4096, device="cuda"), AudioConfig())
     assert log_mel.launches == before
+
+
+@pytest.mark.parametrize("B,T,H,d,e", [
+    (1, 864, 4, 70, 70), (1, 864, 4, 71, 71), (1, 864, 4, 284, 284),
+    (4, 864, 4, 142, 142), (2, 300, 2, 5, 7), (1, 1, 1, 1, 3),
+    (3, 33, 3, 33, 2), (1, 2000, 4, 32, 8)])
+def test_s4_scan_kernel_matches_plain(cuda, B, T, H, d, e):
+    """The S4 layer's decays (-linspace(1, d, d) / d per head), LayerNorm-
+    scale input, a readout of scale d^-0.5; one chunk and several, T not
+    a multiple of 32, odd e."""
+    a = (-torch.linspace(1.0, d, d) / d).repeat(H, 1).cuda()
+    b = torch.ones(H, d, device="cuda")
+    c = _randn(cuda, H, d, e, scale=d ** -0.5)
+    u = _randn(cuda, B, T, H * e)
+    before = s4_scan.launches
+    got = s4_scan(u, a, b, c)
+    torch.cuda.synchronize()
+    assert s4_scan.launches == before + 1
+    _close(got, scan_dw_conv(u, a, b, c), **K4_TOL)
+
+
+@pytest.mark.parametrize("B,T,C,dil", [
+    (4, 6912, 128, 1), (4, 1000, 64, 3), (16, 777, 32, 5), (2, 40, 16, 7),
+    (1, 5, 12, 2)])
+def test_resblock_kernel_matches_plain(cuda, B, T, C, dil):
+    args = [_randn(cuda, B, T, C), _randn(cuda, B, T, C, scale=0.3),
+            _randn(cuda, B, T, C, scale=0.3),
+            _randn(cuda, 3, C, 2 * C, scale=(3 * C) ** -0.5),
+            _randn(cuda, 2 * C, scale=0.1),
+            _randn(cuda, 3, C, C, scale=(3 * C) ** -0.5),
+            _randn(cuda, C, scale=0.1)]
+    before = film_resblock.launches
+    got = film_resblock(*args, dil)
+    torch.cuda.synchronize()
+    assert film_resblock.launches == before + 1
+    _close(got, film_resblock_plain(*args, dil), **K5_TOL)
+
+
+def test_k4_k5_refuse_gradients_and_do_not_fall_back(cuda, monkeypatch):
+    import importlib
+    rb_mod = importlib.import_module("ttsx_torch.ops.resblock")
+    s4_mod = importlib.import_module("ttsx_torch.ops.s4_scan")
+    u, a, b, c = (_randn(cuda, 1, 40, 8), -torch.rand(2, 3).cuda(),
+                  torch.ones(2, 3).cuda(), _randn(cuda, 2, 3, 4))
+    blk = [_randn(cuda, 1, 40, 8), _randn(cuda, 1, 40, 8),
+           _randn(cuda, 1, 40, 8), _randn(cuda, 3, 8, 16),
+           _randn(cuda, 16), _randn(cuda, 3, 8, 8), _randn(cuda, 8)]
+    with pytest.raises(RuntimeError, match="forward-only"):
+        s4_scan(u.requires_grad_(), a, b, c)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        film_resblock(blk[0].requires_grad_(), *blk[1:], 1)
+
+    def no_library(name):
+        raise build.KernelCompileError(f"no {name} library")
+
+    def forbidden(*a_, **k_):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(build, "load", no_library)
+    monkeypatch.setattr(rb_mod, "film_resblock_plain", forbidden)
+    monkeypatch.setattr(s4_mod, "scan_dw_conv", forbidden)
+    before = (s4_scan.launches, film_resblock.launches)
+    with torch.no_grad():
+        with pytest.raises(build.KernelCompileError):
+            s4_scan(u, a, b, c)
+        with pytest.raises(build.KernelCompileError):
+            film_resblock(*blk, 1)
+    assert (s4_scan.launches, film_resblock.launches) == before

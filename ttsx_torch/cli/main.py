@@ -1,5 +1,6 @@
-"""``main_train``: the acoustic + refiner trainer on a wav tree or on
-synthetic batches (``ttsx/cli/main.py:main_train``).
+"""The port's command lines (``ttsx/cli/main.py``): ``main_train``, the
+acoustic + refiner trainer on a wav tree or on synthetic batches, and
+``main_synth``, text -> waveform.
 
     python -m ttsx_torch.cli.main --data-root DIR [--max-steps N]
         [--config cfg.json] [--output-dir out] [--device cuda|cpu]
@@ -14,6 +15,17 @@ augmentation. ``--synthetic`` (or no data root)
 trains on synthetic batches of 2 x 16 frames. The run ends with one
 validation pass; ``train_log.jsonl`` and ``step_times.json`` go to
 ``--output-dir``. Checkpoints and the vocoder block are not ported yet.
+
+    python -m ttsx_torch.cli.synth [--zoo [DIR]] [--sde] [--text T]
+        [--frames N] [--out synth.wav] [--seed S] [--device cuda|cpu]
+
+``main_synth`` (``python -m ttsx_torch.cli.synth``, as the reference's
+``ttsx-synth``) synthesizes ``--frames`` mel frames of ``--text`` with the
+zoo model (``--zoo``) or a fresh init of ``TTSXConfig()`` seeded by
+``--seed``, single-pass or with ``--sde`` (noise from a generator on the
+device seeded by ``--seed``), writes the wav and prints ``{"wav", "samples", "seconds"}``. ``--checkpoint`` raises
+until checkpoints are ported; ``--output-dir`` is accepted as the
+reference's common flag and, as there, not used by synthesis.
 """
 from __future__ import annotations
 
@@ -101,6 +113,57 @@ def main_train(argv=None) -> int:
                       "val_l1": val_metrics.get("val_l1"),
                       "noise_scale": state.noise_scale,
                       "l1_weight": state.l1_weight}))
+    return 0
+
+
+def main_synth(argv=None) -> int:
+    p = argparse.ArgumentParser("ttsx-torch-synth")
+    p.add_argument("--text", default="hello world")
+    p.add_argument("--frames", type=int, default=256)
+    p.add_argument("--checkpoint")
+    p.add_argument("--zoo", nargs="?", const="", metavar="DIR",
+                   help="load the git-tracked pretrained zoo exports "
+                        "(default dir: eval_results/zoo) with its config")
+    p.add_argument("--sde", action="store_true")
+    p.add_argument("--out", default="synth.wav")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--output-dir", default="./output")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    if args.checkpoint:
+        raise NotImplementedError("checkpoints are not ported yet")
+
+    import torch
+    from ttsx_torch.core.config import TTSXConfig
+    from ttsx_torch.core.device import resolve_device, set_f32_numerics
+    from ttsx_torch.data.dataset import TextEncoder, write_wav
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        set_f32_numerics()
+    if args.zoo is not None:
+        from ttsx_torch.zoo import load_pipeline
+        pipe, _ = load_pipeline(zoo_dir=args.zoo or None, device=device)
+    else:
+        from ttsx_torch.models.pipeline import TTSPipeline
+        from ttsx_torch.nn.init import fresh_init_
+        pipe = fresh_init_(TTSPipeline(TTSXConfig()),
+                           torch.Generator().manual_seed(args.seed)).to(device)
+    cfg = pipe.cfg
+    ac = cfg.acoustic
+    T = args.frames
+    emb = torch.as_tensor(TextEncoder(ac.text_emb_dim)(args.text),
+                          device=device)
+    text_emb = emb[None, None, :].expand(1, T, ac.text_emb_dim)
+    prosody = torch.zeros(1, T, ac.cond_dim, device=device)
+    emo = torch.full((1, ac.emotion_dim), 1 / ac.emotion_dim, device=device)
+    spk = torch.zeros(1, ac.speaker_dim, device=device)
+    sid = torch.zeros(1, dtype=torch.long, device=device)
+    gen = torch.Generator(device).manual_seed(args.seed)
+    wav = pipe.synthesize(text_emb, prosody, emo, spk, sid, use_sde=args.sde,
+                          generator=gen).wav
+    write_wav(args.out, wav[0, :, 0].cpu().numpy(), cfg.vocoder.sr)
+    print(json.dumps({"wav": args.out, "samples": int(wav.shape[1]),
+                      "seconds": wav.shape[1] / cfg.vocoder.sr}))
     return 0
 
 

@@ -41,8 +41,8 @@ class S4Config:
     dropout: float = 0.1
     norm_groups: int = 8
     causal: bool = False
-    # 'auto' and 'fft' run the rFFT long convolution; 'scan' and 'pallas'
-    # are not ported yet (ROADMAP Queue 2, K4).
+    # 'auto' and 'fft' run the rFFT long convolution; 'scan' the causal
+    # recurrence in plain PyTorch, 'pallas' the same through kernel K4.
     kernel_mode: str = "auto"
 
 

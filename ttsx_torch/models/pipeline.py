@@ -2,14 +2,14 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ttsx_torch.core.config import TTSXConfig
 from ttsx_torch.models.acoustic import AcousticModel
-from ttsx_torch.models.refiner import ScoreSDERefiner
+from ttsx_torch.models.refiner import ScoreSDERefiner, sde_sample
 from ttsx_torch.models.vocoder import Generator
 from ttsx_torch.nn.gst import GlobalStyleTokens
 
@@ -42,13 +42,24 @@ class TTSPipeline(nn.Module):
     @torch.inference_mode()
     def synthesize(self, text_emb, prosody, emotion_probs, speaker, style_id,
                    use_sde: bool = False,
-                   scale: Optional[torch.Tensor] = None) -> SynthesisOutput:
-        """Single-pass synthesis; ``scale`` is the [B, 2*channels]
+                   scale: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None,
+                   noise: Optional[Sequence[torch.Tensor]] = None
+                   ) -> SynthesisOutput:
+        """Text -> waveform. The refiner runs once at t = 0.5, or with
+        ``use_sde`` as ``sde_sample``'s ``cfg.refiner.sde_steps`` passes on
+        the given ``noise`` tensors or draws from ``generator`` (a
+        generator on the device seeded 0 when neither is given, as the
+        reference defaults to key 0). ``scale`` is the [B, 2*channels]
         conditioning of scale_cond generators."""
-        if use_sde:
-            raise NotImplementedError("sde_sample is not ported yet")
         ac = self.acoustic(text_emb, prosody, emotion_probs, speaker=speaker)
-        mel_ref = self.refiner(ac.mel, prosody, style_id, text_emb).mel_ref
+        if use_sde:
+            if generator is None and noise is None:
+                generator = torch.Generator(ac.mel.device).manual_seed(0)
+            mel_ref = sde_sample(self.refiner, ac.mel, prosody, style_id,
+                                 text_emb, generator=generator, noise=noise)
+        else:
+            mel_ref = self.refiner(ac.mel, prosody, style_id, text_emb).mel_ref
         style = self.gst(mel_ref)
         wav = self.generator(mel_ref, prosody, style, emotion_probs,
                              scale=scale)

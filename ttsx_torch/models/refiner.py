@@ -7,11 +7,12 @@ long skips; the HSF correction is scaled by the learned beta(t); the
 residual VQ runs beside the continuous path as the discrete-code head.
 A training forward (``draws`` given) runs the S4 dropouts, the Gumbel
 gates and their dropout, and advances the VQ's EMA codebooks in place.
-``sde_sample`` is not ported yet.
+``sde_sample`` is the reverse-SDE sampler around the refiner.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import math
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -138,3 +139,35 @@ class ScoreSDERefiner(nn.Module):
         dq, vq_loss = self.vq.quantize(delta, train=draws is not None)
         return RefinerOutput(mel_ref=mel0 + delta, score=delta,
                              mel_vq=mel0 + dq, vq_loss=vq_loss)
+
+
+def sde_sample(refiner: ScoreSDERefiner, mel0: torch.Tensor,
+               prosody: torch.Tensor, style_id: torch.Tensor,
+               text_emb: torch.Tensor, steps: Optional[int] = None,
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[Sequence[torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """Euler-Maruyama reverse-SDE sampling (``ttsx/models/refiner.py``).
+
+    ``steps`` refiner passes (default ``cfg.sde_steps``) from x = mel0:
+    at step k, t = 1 - k dt with dt = 1 / steps, and
+    ``x += dt * score(x, t) + sigma * sqrt(dt) * eps_k * (1 - (k + 1) dt)``,
+    so the last step adds no noise. eps_k is ``noise[k]`` when the caller
+    gives the ``steps`` tensors (the tests give the reference's draws),
+    else a standard normal draw from ``generator`` on mel0's device; JAX's
+    key stream cannot be reproduced."""
+    cfg = refiner.cfg
+    steps = steps or cfg.sde_steps
+    if noise is not None and len(noise) != steps:
+        raise ValueError(f"{len(noise)} noise tensors for {steps} steps")
+    dt = 1.0 / steps
+    B = mel0.shape[0]
+    x = mel0
+    for k in range(steps):
+        t = mel0.new_full((B, 1), 1.0 - k * dt)
+        out = refiner(x, prosody, style_id, text_emb, t=t)
+        eps = (noise[k].to(x) if noise is not None else torch.randn(
+            x.shape, generator=generator, device=x.device, dtype=x.dtype))
+        x = x + dt * out.score + cfg.sde_sigma * math.sqrt(dt) * eps * (
+            1.0 - (k + 1) * dt)
+    return x

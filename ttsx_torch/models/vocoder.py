@@ -14,7 +14,8 @@ Per stage: ConvTranspose upsample, then 3 FiLM residual blocks (dilations
 ``use_pallas_upsample`` the upsample runs kernel K1 and with
 ``use_pallas_resblock_stack`` each stage's blocks run as kernel K2 (both
 in ``ttsx_torch.ops``); with the flags off everything is plain PyTorch.
-The parameters are the same either way.
+A ``FiLMResidualBlock(use_pallas=True)`` runs as kernel K5 (no config
+sets it, as in the reference). The parameters are the same either way.
 """
 from __future__ import annotations
 
@@ -29,16 +30,21 @@ from ttsx_torch.core.config import VocoderConfig
 from ttsx_torch.nn.attention import SelfAttention1d
 from ttsx_torch.nn.conv import Conv1d, ConvTranspose1d
 from ttsx_torch.nn.layers import Dense, LayerNorm, leaky_relu
-from ttsx_torch.ops import convt_upsample, film_resblock_stack
+from ttsx_torch.ops import convt_upsample, film_resblock, film_resblock_stack
 from ttsx_torch.ops.resblock_stack import nearest_rows
 
 
 class FiLMResidualBlock(nn.Module):
     """leaky_relu -> dilated k=3 conv C->2C -> GLU -> FiLM -> leaky_relu ->
-    k=3 conv -> residual; x [nB, T, C], cond [B, Tc, Dc] at any rate."""
+    k=3 conv -> residual; x [nB, T, C], cond [B, Tc, Dc] at any rate.
 
-    def __init__(self, channels: int, dilation: int, cond_dim: int):
+    With ``use_pallas`` the block runs as kernel K5 (``ops.film_resblock``)
+    on the FiLM gathered to x's rate; the parameters are the same."""
+
+    def __init__(self, channels: int, dilation: int, cond_dim: int,
+                 use_pallas: bool = False):
         super().__init__()
+        self.dilation, self.use_pallas = dilation, use_pallas
         self.Dense_0 = Dense(cond_dim, 2 * channels)
         self.Conv1d_0 = Conv1d(channels, 2 * channels, 3, dilation=dilation)
         self.Conv1d_1 = Conv1d(channels, channels, 3)
@@ -47,6 +53,11 @@ class FiLMResidualBlock(nn.Module):
         B, T, C = x.shape
         film = self.Dense_0(cond)[:, nearest_rows(T, cond.shape[1], x.device)]
         scale, shift = film.repeat(B // cond.shape[0], 1, 1).chunk(2, dim=-1)
+        if self.use_pallas:
+            w1, b1, w2, b2 = (w.contiguous() for w in self.kernel_weights())
+            return film_resblock(x.contiguous(), scale.contiguous(),
+                                 shift.contiguous(), w1, b1, w2, b2,
+                                 self.dilation)
         a, b = self.Conv1d_0(leaky_relu(x)).chunk(2, dim=-1)
         y = a * torch.sigmoid(b) * (1.0 + scale) + shift
         return x + self.Conv1d_1(leaky_relu(y))

@@ -1,11 +1,15 @@
-"""Multi-head diagonal S4 layer (``ttsx/nn/s4.py``) on its FFT path.
+"""Multi-head diagonal S4 layer (``ttsx/nn/s4.py``).
 
-The depthwise long convolution runs spectrally with ``torch.fft`` over
-the materialized decay kernel, which is the path ``kernel_mode="auto"``
-takes in the reference. The recurrent forms ('scan', and the Pallas
-kernel K4 behind 'pallas') are not ported yet. A training forward
-(``draws`` given) drops out the gated branch and, with one mask per
-(batch, channel) shared over time, the low-rank residual.
+The depthwise long convolution runs on one of three routes, as in the
+reference: ``kernel_mode="auto"`` / ``"fft"`` convolve spectrally with
+``torch.fft`` over the materialized decay kernel; ``"scan"`` runs the
+causal recurrence in plain PyTorch (``scan_dw_conv``, K4's plain
+version); ``"pallas"`` runs it through kernel K4
+(``ttsx_torch.ops.s4_scan``), which on a CPU tensor runs
+``scan_dw_conv``. The recurrent routes are causal only. A training
+forward (``draws`` given) drops out the gated branch and,
+with one mask per (batch, channel) shared over time, the low-rank
+residual.
 """
 from __future__ import annotations
 
@@ -18,6 +22,9 @@ from ttsx_torch.core.config import S4Config
 from ttsx_torch.nn.conv import Conv1d
 from ttsx_torch.nn.draws import Draws, dropout
 from ttsx_torch.nn.layers import GroupNorm, LayerNorm
+from ttsx_torch.ops.s4_scan import s4_scan, scan_dw_conv
+
+KERNEL_MODES = ("auto", "fft", "scan", "pallas")
 
 
 def _next_pow2(n: int) -> int:
@@ -51,9 +58,11 @@ def fft_dw_conv(x: torch.Tensor, w: torch.Tensor, causal: bool) -> torch.Tensor:
 class S4(nn.Module):
     def __init__(self, d_model: int, cfg: S4Config = S4Config()):
         super().__init__()
-        if cfg.kernel_mode not in ("auto", "fft"):
-            raise NotImplementedError(
-                f"S4 kernel_mode {cfg.kernel_mode!r} is not ported yet")
+        if cfg.kernel_mode not in KERNEL_MODES:
+            raise ValueError(f"S4 kernel_mode {cfg.kernel_mode!r} is not one "
+                             f"of {KERNEL_MODES}")
+        if cfg.kernel_mode in ("scan", "pallas") and not cfg.causal:
+            raise ValueError(f"{cfg.kernel_mode} kernel path is causal-only")
         H, r = cfg.heads, cfg.rank
         if d_model % H:
             raise ValueError("d_model must be divisible by heads")
@@ -73,15 +82,29 @@ class S4(nn.Module):
         self.Conv1d_1 = Conv1d(d_model, 2 * d_model, 1)
         self.GroupNorm_0 = GroupNorm(cfg.norm_groups, d_model)
 
+    def c_full(self) -> torch.Tensor:
+        """The readout [H, d, e]: C1 @ C2 + diag(C0)."""
+        return (torch.einsum("hdr,hre->hde", self.C1, self.C2)
+                + torch.diag_embed(self.C0))
+
+    def long_conv(self, h: torch.Tensor) -> torch.Tensor:
+        """The depthwise SSM convolution of h [B, T, C] on the route that
+        ``cfg.kernel_mode`` names."""
+        mode = self.cfg.kernel_mode
+        c_full, b = self.c_full(), torch.ones_like(self.a_diag)
+        if mode == "scan":
+            return scan_dw_conv(h, self.a_diag, b, c_full)
+        if mode == "pallas":
+            return s4_scan(h.contiguous(), self.a_diag, b, c_full.contiguous())
+        w = ssm_kernel(self.a_diag, b, c_full, h.shape[1])
+        return fft_dw_conv(h, w, self.cfg.causal)
+
     def forward(self, x: torch.Tensor, draws: Draws | None = None
                 ) -> torch.Tensor:
         cfg = self.cfg
         _, T, C = x.shape
-        c_full = (torch.einsum("hdr,hre->hde", self.C1, self.C2)
-                  + torch.diag_embed(self.C0))
         h = self.LayerNorm_0(x)
-        w = ssm_kernel(self.a_diag, torch.ones_like(self.a_diag), c_full, T)
-        y = fft_dw_conv(h, w, cfg.causal)
+        y = self.long_conv(h)
         pb = self.pos_bias[:, :T]
         if T > cfg.l_max:
             pb = torch.cat([pb, pb[:, -1:].expand(-1, T - cfg.l_max)], dim=1)

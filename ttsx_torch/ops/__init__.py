@@ -6,12 +6,15 @@ fallback from the card to PyTorch. ``launches`` on each wrapper counts
 kernel launches.
 """
 from ttsx_torch.ops.mel_frontend import log_mel, log_mel_plain
+from ttsx_torch.ops.resblock import film_resblock, film_resblock_plain
 from ttsx_torch.ops.resblock_stack import (film_resblock_stack,
                                            film_resblock_stack_plain)
+from ttsx_torch.ops.s4_scan import s4_scan
 from ttsx_torch.ops.upsample import convt_upsample, convt_upsample_plain
 
 KERNELS = {"upsample": convt_upsample, "resblock_stack": film_resblock_stack,
-           "mel_frontend": log_mel}
+           "mel_frontend": log_mel, "s4_scan": s4_scan,
+           "resblock": film_resblock}
 
 
 def reset_launches() -> None:

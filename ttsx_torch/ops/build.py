@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` entry points (device
 pointers, sizes, the stream; they return ``cudaGetLastError()``) and is
 compiled on its own into ``_build/<hash>/lib<name>.so``, keyed by the
-hash of all sources and flags, so a fresh checkout builds at first use and
-a second call in the same tree reuses the libraries. All sources compile
+hash of all sources (``*.cu`` and the ``*.cuh`` they include) and
+flags, so a fresh checkout builds at first use and a second call in the
+same tree reuses the libraries. All sources compile
 in parallel, one nvcc process each. No PyTorch header is included, which
 keeps a build to seconds. A failed build raises with nvcc's stderr.
 """
@@ -34,6 +35,8 @@ SIGNATURES = {
     "resblock_stack": {
         "ttsx_resblock_stack_f32": [_P] * 7 + [_I] * 10 + [_P]},
     "mel_frontend": {"ttsx_mel_frontend_f32": [_P] * 5 + [_I] * 5 + [_P]},
+    "s4_scan": {"ttsx_s4_scan_f32": [_P] * 6 + [_I] * 6 + [_P]},
+    "resblock": {"ttsx_resblock_f32": [_P] * 8 + [_I] * 4 + [_P]},
 }
 
 _LOCK = threading.Lock()
@@ -62,7 +65,7 @@ def build_dir() -> Path:
     """``_build/<hash>`` beside the package, or under the temp directory
     when the checkout is not writable."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     root = BUILD_ROOT

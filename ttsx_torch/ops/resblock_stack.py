@@ -11,6 +11,8 @@ stage against 8*C bytes of input and output. The kernel keeps a time
 tile plus a halo of sum(d+1) rows per side in shared memory through all
 blocks, so no intermediate reaches device memory; the film comes in at
 the conditioning rate and each row is gathered with ``(t * Tf) // T``.
+Its device code (``csrc/film_resblock.cuh``) is shared with K5, and its
+plain version runs K5's plain version block by block.
 
 ``resblock_stack`` launches the kernel for a CUDA tensor and runs
 ``film_resblock_stack_plain`` for a CPU tensor; any other device raises.
@@ -20,9 +22,9 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 
 from ttsx_torch.ops import build
+from ttsx_torch.ops.resblock import film_resblock_plain
 
 MAX_BLOCKS = 4
 
@@ -33,15 +35,6 @@ def nearest_rows(t: int, tc: int, device=None) -> torch.Tensor:
     whose float scale can land on other rows)."""
     idx = torch.arange(t, device=device, dtype=torch.int64) * tc // t
     return idx.clamp_(0, tc - 1)
-
-
-def _conv3(h: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
-    """k=3 conv at dilation d with zero padding: taps at t-d, t, t+d;
-    w [3, Cin, Cout]."""
-    T = h.shape[1]
-    hp = F.pad(h, (0, 0, d, d))
-    return (hp[:, :T] @ w[0] + hp[:, d:d + T] @ w[1]
-            + hp[:, 2 * d:2 * d + T] @ w[2])
 
 
 def film_resblock_stack_plain(x: torch.Tensor, film: torch.Tensor,
@@ -57,11 +50,8 @@ def film_resblock_stack_plain(x: torch.Tensor, film: torch.Tensor,
     for i, d in enumerate(dilations):
         fi = film[:, :, 2 * i * C:(2 * i + 2) * C][:, rows]
         fi = fi.repeat(B // Bf, 1, 1)
-        scale, shift = fi[..., :C], fi[..., C:]
-        u = _conv3(F.leaky_relu(x, 0.1), w1s[i], d) + b1s[i]
-        g = u[..., :C] * torch.sigmoid(u[..., C:])
-        g = F.leaky_relu(g * (1.0 + scale) + shift, 0.1)
-        x = x + _conv3(g, w2s[i], 1) + b2s[i]
+        x = film_resblock_plain(x, fi[..., :C], fi[..., C:], w1s[i], b1s[i],
+                                w2s[i], b2s[i], d)
     return x
 
 
