@@ -63,7 +63,10 @@ Run from the root of a checkout. Phases, one JSON line each:
    and K2 at the stage shapes above, K3 on the largest batch the trainer
    collated, with the peak memory each of K3's versions takes beyond
    its input), K1's library call (``F.conv_transpose1d``, timed here
-   only), each kernel's bound from bytes and f32 operations, the model
+   only; K1 and it replayed from a CUDA graph and eager), each kernel's
+   bound from bytes and operations (K1, K2 and K5: three TF32 products
+   per f32 product over the TF32 peak, with the f32 FMA time beside; K3
+   and K4: f32 operations over the f32 peak), the model
    stages, and one 10 s request end to end. K4 per S4 layer shape
    (batch 1 and 4) beside its plain version, the fft route's time at the
    same shape (``ssm_kernel`` + ``fft_dw_conv``) and its bound, K4 and
@@ -76,12 +79,14 @@ Run from the root of a checkout. Phases, one JSON line each:
 
 Then the ``{"kernels": [...]}`` line (K1 and K2 at the serving bucket's
 shapes: ``ms`` and the bounds summed over the four stage calls of one
-forward, launches on the served forward; K3 at the largest collated
+forward, K1's ``ms`` and ``library_ms`` from graph replay, launches on
+the served forward; K3 at the largest collated
 batch, launches over the training run, one per collated batch; K4 summed
 over the 120 layer calls of one SDE synthesize call at batch 1 (``ms``
 from graph replay), launches per call; K5 summed over the 12 blocks of
-the per-block generator route at batch 1, launches on that route),
-the ``nvidia-smi`` line, and last
+the per-block generator route at batch 1, launches on that route;
+each entry's ``ops_peak`` names the peak its operations bound uses and
+``timing`` how its ``ms`` was taken), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero without the ``ok`` line. Without a CUDA card, or without the
 rest of the repository beside it, it exits non-zero at once.
@@ -97,9 +102,13 @@ import tempfile
 import time
 from pathlib import Path
 
-# H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor
-# cores, and HBM3 bandwidth. The port's kernels run f32 FMAs.
+# H100 SXM peaks at 700 W (NVIDIA data sheet, dense): f32 outside the
+# tensor cores, TF32 on them, and HBM3 bandwidth. K3 and K4 run f32 FMAs;
+# K1 runs 3xTF32 on the tensor cores (three TF32 products per f32 product,
+# at f32 accuracy), so K1's, K2's and K5's operations are bounded at that
+# rate, the least time for this work at f32 accuracy on the card.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 TIME_LIMIT_S = 1150
 
@@ -181,9 +190,21 @@ def graph_ms(fn, reps: int = 20) -> float:
     return cuda_ms(g.replay) / reps
 
 
-def bound_ms(nbytes: float, flops: float):
-    tb, tf = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
-    return max(tb, tf), ("bytes" if tb > tf else "operations")
+def bound_ms(nbytes: float, flops: float, tf32x3: bool = False):
+    """(ms, what bounds it): the larger of the bytes over HBM's rate and
+    the f32 operations over the f32 FMA peak ("operations"), or, with
+    ``tf32x3``, three TF32 products per f32 product over the TF32 peak
+    ("operations (3xTF32)")."""
+    tb = nbytes / PEAK_HBM_BYTES * 1e3
+    tf = (3 * flops / PEAK_TF32_FLOPS if tf32x3 else flops / PEAK_F32_FLOPS) * 1e3
+    if tb > tf:
+        return tb, "bytes"
+    return tf, "operations (3xTF32)" if tf32x3 else "operations"
+
+
+def f32_fma_ms(flops: float) -> float:
+    """The same operations on the f32 FMA pipe at its peak."""
+    return flops / PEAK_F32_FLOPS * 1e3
 
 
 def err(got, ref):
@@ -288,7 +309,10 @@ def check_kernels(shapes, gen, dil):
 
 
 def time_kernels(shapes, gen, dil):
-    """Per stage: kernel, plain and (K1) library ms, and the bound."""
+    """Per stage: kernel, plain and (K1) library ms, and the bound. K1 and
+    its library call are timed by graph replay (``ms``, ``library_ms``: at
+    stages 2-3 K1 takes tens of microseconds, which eager event timing
+    reads as the host's launch cost) and eager beside it."""
     import torch.nn.functional as F
     from ttsx_torch.ops.resblock_stack import (film_resblock_stack,
                                                film_resblock_stack_plain)
@@ -300,20 +324,23 @@ def time_kernels(shapes, gen, dil):
         xc = x.transpose(1, 2).contiguous()
         lo, tf = s["f"] // 2, s["T"] * s["f"]
         nbytes, flops = k1_cost(s)
-        bms, by = bound_ms(nbytes, flops)
+        bms, by = bound_ms(nbytes, flops, tf32x3=True)
+        k1 = lambda: convt_upsample(x, w, b, s["f"])
+        lib = lambda: F.conv_transpose1d(xc, wt, b, stride=s["f"])[:, :, lo:lo + tf]
         rows["upsample"].append(dict(
-            ms=cuda_ms(lambda: convt_upsample(x, w, b, s["f"])),
+            ms=graph_ms(k1), eager_ms=cuda_ms(k1),
             plain_ms=cuda_ms(lambda: convt_upsample_plain(x, w, b, s["f"])),
-            library_ms=cuda_ms(lambda: F.conv_transpose1d(
-                xc, wt, b, stride=s["f"])[:, :, lo:lo + tf]),
-            bound_ms=bms, bound_by=by, gflop=flops / 1e9, mbytes=nbytes / 1e6))
+            library_ms=graph_ms(lib), library_eager_ms=cuda_ms(lib),
+            bound_ms=bms, bound_by=by, f32_fma_ms=f32_fma_ms(flops),
+            gflop=flops / 1e9, mbytes=nbytes / 1e6))
         a = make_k2(s, gen, len(dil))
         nbytes, flops = k2_cost(s, len(dil))
-        bms, by = bound_ms(nbytes, flops)
+        bms, by = bound_ms(nbytes, flops, tf32x3=True)
         rows["resblock_stack"].append(dict(
             ms=cuda_ms(lambda: film_resblock_stack(*a, dil)),
             plain_ms=cuda_ms(lambda: film_resblock_stack_plain(*a, dil)),
-            library_ms=None, bound_ms=bms, bound_by=by, gflop=flops / 1e9,
+            library_ms=None, bound_ms=bms, bound_by=by,
+            f32_fma_ms=f32_fma_ms(flops), gflop=flops / 1e9,
             mbytes=nbytes / 1e6))
         del x, w, b, wt, xc, a
     return rows
@@ -640,13 +667,14 @@ def time_k5(stages):
         x = st["x"]
         for args in st["k5"]:
             nbytes, flops = k5_cost(st["B"], st["T"], st["C"])
-            bms, by = bound_ms(nbytes, flops)
+            bms, by = bound_ms(nbytes, flops, tf32x3=True)
             blocks.append(dict(
                 shape=[st["B"], st["T"], st["C"], args[-1]],
                 ms=cuda_ms(lambda: film_resblock(x, *args)),
                 plain_ms=cuda_ms(lambda: film_resblock_plain(x, *args)),
                 library_ms=None, bound_ms=bms, bound_by=by,
-                gflop=flops / 1e9, mbytes=nbytes / 1e6))
+                f32_fma_ms=f32_fma_ms(flops), gflop=flops / 1e9,
+                mbytes=nbytes / 1e6))
         dil = tuple(a[-1] for a in st["k5"])
         per_stage.append(dict(
             shape=[st["B"], st["T"], st["C"]],
@@ -1269,22 +1297,28 @@ def main(argv=None) -> int:
     main_rows, main_checks = rows[MAX_BATCH], checks[MAX_BATCH]
     total = lambda name, key: (None if main_rows[name][0][key] is None
                                else sum(r[key] for r in main_rows[name]))
+    # bound_by is "bytes" or "operations"; ops_peak says which peak the
+    # operations were counted at ("tf32x3": three TF32 products per f32
+    # product over PEAK_TF32_FLOPS, "f32": PEAK_F32_FLOPS) and timing how
+    # ms was taken ("graph": CUDA-graph replay, "eager": CUDA events)
     meta = {
         "upsample": ("ttsx_torch/ops/csrc/upsample.cu",
-                     "ttsx/ops/upsample_kernel.py:127"),
+                     "ttsx/ops/upsample_kernel.py:127", "graph"),
         "resblock_stack": ("ttsx_torch/ops/csrc/resblock_stack.cu",
-                           "ttsx/ops/resblock_stack_kernel.py:211"),
+                           "ttsx/ops/resblock_stack_kernel.py:211", "eager"),
     }
     kernels = []
-    for name, (src, replaces) in meta.items():
+    for name, (src, replaces, timing) in meta.items():
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name],
             max_abs_err=max(c["max_abs_err"] for c in main_checks[name]),
             ms=total(name, "ms"), plain_ms=total(name, "plain_ms"),
             bound_ms=total(name, "bound_ms"),
-            bound_by=max(main_rows[name], key=lambda r: r["bound_ms"])["bound_by"],
-            library_ms=total(name, "library_ms")))
+            bound_by=max(main_rows[name], key=lambda r: r["bound_ms"])[
+                "bound_by"].split()[0],
+            library_ms=total(name, "library_ms"),
+            ops_peak="tf32x3", timing=timing))
     kernels.append(dict(
         name="mel_frontend", route="cuda",
         source="ttsx_torch/ops/csrc/mel_frontend.cu",
@@ -1293,28 +1327,30 @@ def main(argv=None) -> int:
         max_abs_err=max(mel_check["max_abs_err"], train["k3_max_abs_err"]),
         ms=mel_row["ms"],
         plain_ms=mel_row["plain_ms"], bound_ms=mel_row["bound_ms"],
-        bound_by=mel_row["bound_by"], library_ms=None))
+        bound_by=mel_row["bound_by"], library_ms=None, ops_peak="f32",
+        timing="eager"))
     # K4: one SDE synthesize call at batch 1 (8 refiner passes of the 15
     # layer shapes); K5: the per-block generator route at batch 1 (12 blocks)
     k4_one, (k5_one, _) = k4_rows[1], k5_rows[1]
     passes = pipe_p.cfg.refiner.sde_steps
     k4_launches = sde["cases"]["one"]["launches_pallas"]["s4_scan"]
-    for name, src, replaces, n, errs, rows_, scale in (
+    for name, src, replaces, n, errs, rows_, scale, peak, timing in (
             ("s4_scan", "ttsx_torch/ops/csrc/s4_scan.cu",
              "ttsx/ops/s4_kernel.py:119", k4_launches,
-             [c["max_abs_err"] for c in k4_checks], k4_one, passes),
+             [c["max_abs_err"] for c in k4_checks], k4_one, passes,
+             "f32", "graph"),
             ("resblock", "ttsx_torch/ops/csrc/resblock.cu",
              "ttsx/ops/resblock_kernel.py:157", k5_launches,
              [c["max_abs_err"] for v in k5_checks.values() for c in v[0]],
-             k5_one, 1)):
+             k5_one, 1, "tf32x3", "eager")):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=n, max_abs_err=max(errs),
             ms=scale * sum(r["ms"] for r in rows_),
             plain_ms=scale * sum(r["plain_ms"] for r in rows_),
             bound_ms=scale * sum(r["bound_ms"] for r in rows_),
-            bound_by=max(rows_, key=lambda r: r["bound_ms"])["bound_by"],
-            library_ms=None))
+            bound_by=max(rows_, key=lambda r: r["bound_ms"])["bound_by"].split()[0],
+            library_ms=None, ops_peak=peak, timing=timing))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     signal.alarm(0)

@@ -51,18 +51,45 @@ def _close(got, ref, **tol):
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **tol)
 
 
-@pytest.mark.parametrize("f,cin,cout,T,B", [
-    (8, 256, 128, 216, 4), (8, 128, 64, 300, 3), (2, 64, 32, 1000, 2),
-    (2, 32, 16, 777, 5), (4, 20, 12, 31, 1), (2, 8, 4, 1, 1)])
-def test_upsample_kernel_matches_plain(cuda, f, cin, cout, T, B):
-    x = _randn(cuda, B, T, cin)
-    w = _randn(cuda, 2 * f, cin, cout, scale=(2 * cin) ** -0.5)
-    b = _randn(cuda, cout)
+def _upsample_case(x, w, b, f):
     before = convt_upsample.launches
     got = convt_upsample(x, w, b, f)
     torch.cuda.synchronize()
     assert convt_upsample.launches == before + 1
     _close(got, convt_upsample_plain(x, w, b, f), **K1_TOL)
+
+
+@pytest.mark.parametrize("f,cin,cout,T,B", [
+    (8, 256, 128, 216, 4), (8, 128, 64, 300, 3), (2, 64, 32, 1000, 2),
+    (2, 32, 16, 777, 5), (4, 20, 12, 31, 1), (2, 8, 4, 1, 1),
+    # the zoo's generator stages 0 and 3 at the serving bucket (4 x 4 bands)
+    (8, 256, 128, 864, 16), (2, 32, 16, 110592, 16),
+    # T not a multiple of the row tile (128 rows at N >= 64, 256 at N <=
+    # 32): flattened B*T rows would put two batch items in one tile, so
+    # these check the zero halo at t = -1 and t = T of every item
+    (8, 64, 32, 100, 3), (4, 32, 16, 130, 4), (2, 32, 16, 300, 5),
+    # Cin not a multiple of 4: x is staged with 4-byte copies
+    (2, 6, 8, 37, 2),
+    # the prev/next split (f // 2 * Cout = 12) inside an n8 tile: the
+    # warp runs both banks' offsets with B masked per column
+    (2, 40, 12, 257, 3)])
+def test_upsample_kernel_matches_plain(cuda, f, cin, cout, T, B):
+    _upsample_case(_randn(cuda, B, T, cin),
+                   _randn(cuda, 2 * f, cin, cout, scale=(2 * cin) ** -0.5),
+                   _randn(cuda, cout), f)
+
+
+@pytest.mark.parametrize("f,cin,cout,T,B", [
+    (8, 256, 128, 96, 3), (2, 64, 32, 1000, 2)])
+def test_upsample_kernel_large_inputs_f32_accurate(cuda, f, cin, cout, T, B):
+    """x at 1e3 scale: K1_TOL's atol is then 1e-8 of the outputs, so the
+    check is the relative 1e-5, which a single TF32 product (2^-11 per
+    operand) misses and 3xTF32 holds. Inputs, taps and bias are positive,
+    so no output is a cancellation near zero, where any two f32 summation
+    orders differ by more than 1e-5 relative."""
+    x = _randn(cuda, B, T, cin).abs() * 1e3
+    w = _randn(cuda, 2 * f, cin, cout, scale=(2 * cin) ** -0.5).abs()
+    _upsample_case(x, w, _randn(cuda, cout).abs(), f)
 
 
 @pytest.mark.parametrize("B,T,C,Tf,Bf,dils", [

@@ -5,10 +5,12 @@ Replaces the Pallas TPU kernel ``ttsx/ops/upsample_kernel.py``
 ``upsample_lrelu_pallas``), which the generator calls with
 ``lrelu=False`` once per stage. The CUDA source is ``csrc/upsample.cu``.
 
-What bounds it on the H100: f32 operations (4*Cin flops per output value
-against 4 bytes written). The kernel stages each tile's input rows in
-shared memory once and runs an f32 FMA loop with a 4x4 register tile per
-thread; see the source's header for the layout.
+What bounds it on the H100: operations at the generator's first two stages,
+bytes at the last two. The kernel is an implicit GEMM (M = input rows, N =
+f*Cout, K = Cin for each of a column's two tap banks) on the tensor cores in
+3xTF32: each f32 operand is split into two TF32 parts and three TF32
+products are summed in f32, which keeps the error near f32's, so the f32
+gates hold; see the source's header for the tiles.
 
 ``upsample`` launches the kernel for a CUDA tensor and runs
 ``convt_upsample_plain`` (the same tap-bank arithmetic in PyTorch) for a CPU
