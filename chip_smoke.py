@@ -63,7 +63,7 @@ Run from the root of a checkout. Phases, one JSON line each:
    and K2 at the stage shapes above, K3 on the largest batch the trainer
    collated, with the peak memory each of K3's versions takes beyond
    its input), K1's library call (``F.conv_transpose1d``, timed here
-   only; K1 and it replayed from a CUDA graph and eager), each kernel's
+   only; K1, K2 and it replayed from a CUDA graph and eager), each kernel's
    bound from bytes and operations (K1, K2 and K5: three TF32 products
    per f32 product over the TF32 peak, with the f32 FMA time beside; K3
    and K4: f32 operations over the f32 peak), the model
@@ -72,19 +72,21 @@ Run from the root of a checkout. Phases, one JSON line each:
    same shape (``ssm_kernel`` + ``fft_dw_conv``) and its bound, K4 and
    the fft route both replayed from a CUDA graph (device time; their
    short kernels make eager event timing read the host) and eager; K5 per
-   block shape beside its plain version and bound, and three K5 launches
-   against one K2 launch per stage; at batch 1 one refiner pass and
+   block shape (graph replay and eager) beside its plain version and
+   bound, and three K5 launches against one K2 launch per stage; at
+   batch 1 one refiner pass and
    ``sde_sample`` in each mode, the generator's K2 and per-block routes,
    and SDE requests end to end in each mode.
 
 Then the ``{"kernels": [...]}`` line (K1 and K2 at the serving bucket's
 shapes: ``ms`` and the bounds summed over the four stage calls of one
-forward, K1's ``ms`` and ``library_ms`` from graph replay, launches on
-the served forward; K3 at the largest collated
+forward, K1's and K2's ``ms`` and K1's ``library_ms`` from graph
+replay, launches on the served forward; K3 at the largest collated
 batch, launches over the training run, one per collated batch; K4 summed
 over the 120 layer calls of one SDE synthesize call at batch 1 (``ms``
 from graph replay), launches per call; K5 summed over the 12 blocks of
-the per-block generator route at batch 1, launches on that route;
+the per-block generator route at batch 1 (``ms`` from graph replay),
+launches on that route;
 each entry's ``ops_peak`` names the peak its operations bound uses and
 ``timing`` how its ``ms`` was taken), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -309,9 +311,9 @@ def check_kernels(shapes, gen, dil):
 
 
 def time_kernels(shapes, gen, dil):
-    """Per stage: kernel, plain and (K1) library ms, and the bound. K1 and
-    its library call are timed by graph replay (``ms``, ``library_ms``: at
-    stages 2-3 K1 takes tens of microseconds, which eager event timing
+    """Per stage: kernel, plain and (K1) library ms, and the bound. K1, its
+    library call and K2 are timed by graph replay (``ms``, ``library_ms``:
+    at stages 2-3 K1 takes tens of microseconds, which eager event timing
     reads as the host's launch cost) and eager beside it."""
     import torch.nn.functional as F
     from ttsx_torch.ops.resblock_stack import (film_resblock_stack,
@@ -336,8 +338,9 @@ def time_kernels(shapes, gen, dil):
         a = make_k2(s, gen, len(dil))
         nbytes, flops = k2_cost(s, len(dil))
         bms, by = bound_ms(nbytes, flops, tf32x3=True)
+        k2 = lambda: film_resblock_stack(*a, dil)
         rows["resblock_stack"].append(dict(
-            ms=cuda_ms(lambda: film_resblock_stack(*a, dil)),
+            ms=graph_ms(k2), eager_ms=cuda_ms(k2),
             plain_ms=cuda_ms(lambda: film_resblock_stack_plain(*a, dil)),
             library_ms=None, bound_ms=bms, bound_by=by,
             f32_fma_ms=f32_fma_ms(flops), gflop=flops / 1e9,
@@ -658,8 +661,8 @@ def time_k4(layers, batch: int, gen):
 
 
 def time_k5(stages):
-    """Per block shape: K5 and plain ms and the bound; per stage: three
-    K5 launches against K2's one."""
+    """Per block shape: K5 (graph replay, eager beside it) and plain ms
+    and the bound; per stage: three K5 launches against K2's one."""
     from ttsx_torch.ops.resblock import film_resblock, film_resblock_plain
     from ttsx_torch.ops.resblock_stack import film_resblock_stack
     blocks, per_stage = [], []
@@ -668,9 +671,10 @@ def time_k5(stages):
         for args in st["k5"]:
             nbytes, flops = k5_cost(st["B"], st["T"], st["C"])
             bms, by = bound_ms(nbytes, flops, tf32x3=True)
+            k5 = lambda: film_resblock(x, *args)
             blocks.append(dict(
                 shape=[st["B"], st["T"], st["C"], args[-1]],
-                ms=cuda_ms(lambda: film_resblock(x, *args)),
+                ms=graph_ms(k5), eager_ms=cuda_ms(k5),
                 plain_ms=cuda_ms(lambda: film_resblock_plain(x, *args)),
                 library_ms=None, bound_ms=bms, bound_by=by,
                 f32_fma_ms=f32_fma_ms(flops), gflop=flops / 1e9,
@@ -1305,7 +1309,7 @@ def main(argv=None) -> int:
         "upsample": ("ttsx_torch/ops/csrc/upsample.cu",
                      "ttsx/ops/upsample_kernel.py:127", "graph"),
         "resblock_stack": ("ttsx_torch/ops/csrc/resblock_stack.cu",
-                           "ttsx/ops/resblock_stack_kernel.py:211", "eager"),
+                           "ttsx/ops/resblock_stack_kernel.py:211", "graph"),
     }
     kernels = []
     for name, (src, replaces, timing) in meta.items():
@@ -1342,7 +1346,7 @@ def main(argv=None) -> int:
             ("resblock", "ttsx_torch/ops/csrc/resblock.cu",
              "ttsx/ops/resblock_kernel.py:157", k5_launches,
              [c["max_abs_err"] for v in k5_checks.values() for c in v[0]],
-             k5_one, 1, "tf32x3", "eager")):
+             k5_one, 1, "tf32x3", "graph")):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=n, max_abs_err=max(errs),

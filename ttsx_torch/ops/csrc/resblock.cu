@@ -8,11 +8,12 @@
 //     y = x + conv3(lrelu(glu(conv3_d(lrelu(x))) * (1 + scale) + shift))
 // It runs the device code of K2 (film_resblock.cuh) with one block and
 // the scale and shift read through their own pointers (no concatenated
-// copy). Bound on the H100: 18 C^2 flops per row against 16 C bytes (x,
-// scale, shift read, y written): operations at C >= 32, bytes at C = 16.
+// copy). Bound on the H100: 18 C^2 flops per row, run as three TF32
+// products each, against 16 C bytes (x, scale, shift read, y written):
+// operations at C >= 64, bytes at C <= 32.
 // The TPU kernel windows x, scale and shift into overlapping 512 + 16 row
-// tiles in device memory first; here a CTA reads its rows plus a halo of
-// d + 1 on each side straight from x.
+// tiles in device memory first; here a CTA stages its rows of x, scale and
+// shift plus a halo of d + 1 on each side straight into shared memory.
 //
 // Layouts (row-major, f32): x, scale, shift, y [B, T, C]; w1 [3, C, 2C];
 // b1 [2C]; w2 [3, C, C]; b2 [C].

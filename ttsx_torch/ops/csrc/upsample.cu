@@ -27,7 +27,8 @@
 // f32 sums truncate: summing all 2*Cin products of a column there missed
 // the f32 gates at Cin 256 (1.5e-5 off plain on an H100), so every kFlush
 // k8 steps the partial sum (32 products a column) starts from zero and is
-// added to the accumulator on the FMA pipe, rounded to nearest.
+// added to the accumulator on the FMA pipe, rounded to nearest. The
+// cp.async, split and MMA helpers are in tf32x3.cuh, shared with K2 and K5.
 //
 // Design: a CTA owns BM input rows of one batch item x BN columns. Per K
 // chunk of KC channels it stages, with cp.async into kStages buffers,
@@ -55,7 +56,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
+
+using tf32x3::cp_async16;
+using tf32x3::cp_async4;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait;
+using tf32x3::mma_tf32;
+using tf32x3::split_tf32;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -83,53 +93,6 @@ struct Tile {
   static_assert(TM == 32 || TM == 64, "launch bounds: 64 / TM CTAs an SM");
   static_assert(kThreads % (BN / 4) == 0, "one 4-column group per thread");
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// a = hi + lo. hi is a rounded to TF32 (nearest, ties away, as
-// cvt.rna.tf32.f32 does) with two integer ops: the cvt instructions made
-// K1 slower on an H100. lo = a - hi is exact and goes to the
-// tensor cores as it is: they read its top 19 bits, which truncates lo to
-// TF32 (an error below 2^-21 of a).
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(__fsub_rn(a, __uint_as_float(hi)));
-}
-
-// c = a . b + (kZero ? 0 : c)
-template <bool kZero>
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  const float z = 0.f;
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(kZero ? z : c[0]), "f"(kZero ? z : c[1]), "f"(kZero ? z : c[2]),
-        "f"(kZero ? z : c[3]));
-}
 
 // B fragments of one k8 step: [n8 tile][hi, lo][k = t4, t4 + 4]
 template <int NI>

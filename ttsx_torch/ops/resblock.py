@@ -9,9 +9,10 @@ Replaces the Pallas TPU kernel ``ttsx/ops/resblock_kernel.py``
 (``csrc/film_resblock.cuh``), run with one block and the scale and shift
 read through their own pointers.
 
-What bounds it on the H100: f32 operations, 18*C^2 flops per row against
-16*C bytes (x, scale and shift read, y written): operations down to C =
-32, bytes at C = 16.
+What bounds it on the H100: 18*C^2 flops per row against 16*C bytes (x,
+scale and shift read, y written), counting three TF32 products per f32
+product on the tensor cores, where the shared device code runs both
+convs in 3xTF32: operations at C >= 64, bytes at C <= 32.
 
 K5 is forward-only, as the reference kernel (no VJP there): on a CUDA
 tensor a call that would need a gradient raises. ``film_resblock``

@@ -6,13 +6,16 @@ Replaces the Pallas TPU kernel ``ttsx/ops/resblock_stack_kernel.py``
 generator calls once per stage with all blocks (dilations 1, 3, 5). The
 CUDA source is ``csrc/resblock_stack.cu``.
 
-What bounds it on the H100: f32 operations, 54*C^2 flops per row per
-stage against 8*C bytes of input and output. The kernel keeps a time
-tile plus a halo of sum(d+1) rows per side in shared memory through all
-blocks, so no intermediate reaches device memory; the film comes in at
-the conditioning rate and each row is gathered with ``(t * Tf) // T``.
-Its device code (``csrc/film_resblock.cuh``) is shared with K5, and its
-plain version runs K5's plain version block by block.
+What bounds it on the H100: operations, 54*C^2 flops per row per stage
+against 8*C bytes of input and output. The kernel keeps a time tile plus
+a halo of sum(d+1) rows per side in shared memory through all blocks, so
+no intermediate reaches device memory, and runs both convs of each block
+as GEMMs on the tensor cores in 3xTF32 (three TF32 products per f32
+product, at an error near f32's), with the GLU and FiLM in registers;
+the film comes in at the conditioning rate and each row is gathered
+with ``(t * Tf) // T``. Its device code (``csrc/film_resblock.cuh``) is
+shared with K5, and its plain version runs K5's plain version block by
+block.
 
 ``resblock_stack`` launches the kernel for a CUDA tensor and runs
 ``film_resblock_stack_plain`` for a CPU tensor; any other device raises.
