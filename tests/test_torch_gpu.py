@@ -226,23 +226,94 @@ def test_mel_frontend_kernel_does_not_fall_back(cuda, monkeypatch):
     assert log_mel.launches == before
 
 
-@pytest.mark.parametrize("B,T,H,d,e", [
-    (1, 864, 4, 70, 70), (1, 864, 4, 71, 71), (1, 864, 4, 284, 284),
-    (4, 864, 4, 142, 142), (2, 300, 2, 5, 7), (1, 1, 1, 1, 3),
-    (3, 33, 3, 33, 2), (1, 2000, 4, 32, 8)])
-def test_s4_scan_kernel_matches_plain(cuda, B, T, H, d, e):
-    """The S4 layer's decays (-linspace(1, d, d) / d per head), LayerNorm-
-    scale input, a readout of scale d^-0.5; one chunk and several, T not
-    a multiple of 32, odd e."""
-    a = (-torch.linspace(1.0, d, d) / d).repeat(H, 1).cuda()
-    b = torch.ones(H, d, device="cuda")
-    c = _randn(cuda, H, d, e, scale=d ** -0.5)
-    u = _randn(cuda, B, T, H * e)
+def _s4_case(u, a, b, c):
     before = s4_scan.launches
     got = s4_scan(u, a, b, c)
     torch.cuda.synchronize()
     assert s4_scan.launches == before + 1
     _close(got, scan_dw_conv(u, a, b, c), **K4_TOL)
+
+
+@pytest.mark.parametrize("B,T,H,d,e", [
+    (1, 864, 4, 70, 70), (1, 864, 4, 71, 71), (1, 864, 4, 284, 284),
+    (4, 864, 4, 142, 142), (2, 300, 2, 5, 7), (1, 1, 1, 1, 3),
+    (3, 33, 3, 33, 2), (1, 2000, 4, 32, 8),
+    # T around the chunk (L = 32): one chunk short, exact, one and two
+    # chunks plus a step; and past a group of 16 chunks (512 steps, the
+    # group of a CTA of 2 channels)
+    (2, 31, 2, 40, 36), (2, 32, 2, 40, 36), (2, 33, 2, 40, 36),
+    (1, 65, 3, 71, 71), (2, 513, 2, 40, 36),
+    # more modes than channels and the reverse (n8 tiles of modes)
+    (1, 300, 2, 284, 8), (1, 300, 2, 8, 284),
+    # d not a multiple of 8 (the last n8 tile of modes is partly padding)
+    (2, 200, 3, 5, 16), (1, 500, 2, 70, 24),
+    # CTAs of 8 channels (their CTAs number four per SM of an H100): the
+    # zoo's widest layer at the serving bucket; e = 71 (4-byte copies of
+    # u); T past a group of 4 chunks (128 steps)
+    (4, 864, 4, 284, 284), (8, 300, 8, 71, 71), (16, 129, 8, 40, 36),
+    # CTAs of 4 channels: the zoo's middle layer at batch 1 (and, above,
+    # its widest at batch 1 and middle at the bucket)
+    (1, 864, 4, 142, 142),
+    # the most modes a CTA's shared memory holds, in CTAs of 8 channels
+    # (the other widths hold more)
+    (66, 40, 1, 872, 64)])
+def test_s4_scan_kernel_matches_plain(cuda, B, T, H, d, e):
+    """The S4 layer's decays (-linspace(1, d, d) / d per head), LayerNorm-
+    scale input, a readout of scale d^-0.5; one chunk and several, T not
+    a multiple of the chunk, odd e."""
+    a = (-torch.linspace(1.0, d, d) / d).repeat(H, 1).cuda()
+    b = torch.ones(H, d, device="cuda")
+    c = _randn(cuda, H, d, e, scale=d ** -0.5)
+    _s4_case(_randn(cuda, B, T, H * e), a, b, c)
+
+
+def _recurrence_f64(u, a, b, c):
+    """The S4 recurrence of ``scan_dw_conv`` in float64."""
+    B, T, C = u.shape
+    H, d = a.shape
+    x = u.double().reshape(B, T, H, C // H)
+    dec = torch.exp(torch.clamp(a.double(), -50.0, 50.0))[:, None, :]
+    s = torch.zeros(B, H, C // H, d, dtype=torch.float64, device=u.device)
+    ys = []
+    for t in range(T):
+        s = s * dec + x[:, t, :, :, None] * b.double()[:, None, :]
+        ys.append(torch.einsum("bhed,hde->bhe", s, c.double()))
+    return torch.stack(ys, dim=1).reshape(B, T, C)
+
+
+@pytest.mark.parametrize("what", ["u_1e3", "slow_decay", "clipped_decay"])
+def test_s4_scan_kernel_extreme_inputs_f32_accurate(cuda, what):
+    """K4 at f32 accuracy (3xTF32) away from LayerNorm scale, at the zoo's
+    widest layer shape (T = 864, 4 heads, d = e = 284), with signed input
+    and readout: u at 1e3 scale; a slow decay (a = -1e-3: the carried
+    state grows over all 864 steps); a decay clipped at -50 (a = -60:
+    dec^L underflows to 0, the carry drops out). Both K4 and the plain
+    version are held against the recurrence in float64: K4 within K4_TOL
+    of it on the scale of the output (its largest magnitude, since an
+    output that cancels to near 0 carries the rounding of the terms it
+    sums, in any f32 order), and K4's largest error at most twice the
+    plain version's."""
+    B, T, H, d = 1, 864, 4, 284
+    a = (-torch.linspace(1.0, d, d) / d).repeat(H, 1).cuda()
+    c = _randn(cuda, H, d, d, scale=d ** -0.5)
+    u = _randn(cuda, B, T, H * d)
+    if what == "u_1e3":
+        u = u * 1e3
+    elif what == "slow_decay":
+        a = torch.full((H, d), -1e-3, device="cuda")
+    else:
+        a = torch.full((H, d), -60.0, device="cuda")
+    b = torch.ones(H, d, device="cuda")
+    before = s4_scan.launches
+    got = s4_scan(u, a, b, c)
+    torch.cuda.synchronize()
+    assert s4_scan.launches == before + 1
+    ref = _recurrence_f64(u, a, b, c)
+    err = (got.double() - ref).abs().max().item()
+    plain_err = (scan_dw_conv(u, a, b, c).double() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    assert err <= K4_TOL["atol"] + K4_TOL["rtol"] * scale, (err, scale)
+    assert err <= 2 * plain_err, (err, plain_err)
 
 
 @pytest.mark.parametrize("B,T,C,dil", [

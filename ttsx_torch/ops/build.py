@@ -35,7 +35,7 @@ SIGNATURES = {
     "resblock_stack": {
         "ttsx_resblock_stack_f32": [_P] * 7 + [_I] * 10 + [_P]},
     "mel_frontend": {"ttsx_mel_frontend_f32": [_P] * 5 + [_I] * 5 + [_P]},
-    "s4_scan": {"ttsx_s4_scan_f32": [_P] * 6 + [_I] * 6 + [_P]},
+    "s4_scan": {"ttsx_s4_scan_f32": [_P] * 5 + [_I] * 6 + [_P]},
     "resblock": {"ttsx_resblock_f32": [_P] * 8 + [_I] * 4 + [_P]},
 }
 

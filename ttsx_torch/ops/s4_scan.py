@@ -1,5 +1,5 @@
-"""K4: the causal diagonal-SSM recurrence of the S4 layer, as a CUDA kernel
-for Hopper.
+"""K4: the causal diagonal-SSM recurrence of the S4 layer, as chunked
+3xTF32 tensor-core products for Hopper.
 
 Replaces the Pallas TPU kernel ``ttsx/ops/s4_kernel.py``
 (``s4_scan_pallas``, body ``_s4_head_kernel``), which an S4 layer with
@@ -10,15 +10,22 @@ What it computes: u [B, T, C = H*e] -> y [B, T, C]; channel (h, j) holds
 d states ``s_t = exp(clip(a[h], -50, 50)) * s_{t-1} + b[h] * u_t`` from
 zero at t = 0 and reads out ``y_t = sum_m c_full[h, m, j] * s_t[m]``.
 
-What bounds it on the H100: f32 operations, about 4 B T C d (update plus
-readout) against 8 B T C bytes of input and output. The TPU kernel's
-per-chunk Toeplitz products are about T_chunk times that work and are not
-carried over: the kernel runs the recurrence itself, one warp per
-channel with its modes in registers (see the source's header). To fill
-the card at batch 1 it cuts time into chunks of ``chunk_len`` steps: a
-first pass writes each chunk's end state from zero (scratch [B, n-1, C,
-d]), the second runs every chunk again from its carried-in state with
-the readout.
+What bounds it on the H100: operations, 4 B T C d of them against 8 B T
+C bytes of input and output. The decays depend on the head and the
+mode, not on the channel, so over a chunk of ``CHUNK`` steps the
+recurrence is two products per head whose A operands are powers of the
+decays: the chunk's end state from zero, ``Vend . U``, and its output
+from the carried-in state, ``W . (cc * R)``, plus a local causal
+convolution with the head's lag kernel (the source's header has the
+algebra). The products run on the tensor cores in 3xTF32, at f32
+accuracy. The TPU kernel's per-mode Toeplitz blocks, about ``CHUNK``
+times that work, are not carried over. One launch: a CTA takes 8, 4 or 2
+channels of one head and one batch row (``launch_geometry``) and walks
+time in groups of chunks, ``ROWS`` (chunk, channel) rows at a time, with
+the carried states in shared memory; each warp takes a share of the
+modes and runs both products for them, the carry between chunks in its
+registers, and the warps' sums meet in shared memory. Shared memory
+grows with d, which caps it at ``MAX_MODES``.
 
 K4 is forward-only, as the reference kernel (no VJP there): on a CUDA
 tensor a call that would need a gradient raises. ``s4_scan`` launches the
@@ -27,22 +34,51 @@ for a CPU tensor; any other device raises.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ttsx_torch.ops import build
 
-MAX_MODES = 288      # d <= 9 modes per lane x 32 lanes
-GROUP = 32           # time steps per register group (chunks are multiples)
-WARPS_PER_SM = 16    # chunks are cut until about this many warps per SM
+CHUNK = 32          # L, time steps per chunk (kChunk in the source)
+ROWS = 32           # (chunk, channel) rows a CTA takes at once (kRows)
+MAX_MODES = 872     # d that fits a CTA's shared memory (kMaxModes)
 
 
-def chunk_len(B: int, T: int, C: int, sms: int) -> int:
-    """Time steps per chunk: the longest multiple of 32 that still gives
-    about ``WARPS_PER_SM * sms`` warps (one per batch row, channel and
-    chunk); T rounded up to 32 when B * C alone fills the card."""
-    want = -(-WARPS_PER_SM * sms // (B * C))
-    per = -(-T // max(1, want))
-    return -(-per // GROUP) * GROUP
+class Geometry(NamedTuple):
+    """K4's launch for one call: chunk length, chunks, channels a CTA
+    takes (8 where its CTAs number four per SM, else 4 where they cover
+    the SMs, else 2), the
+    groups of ROWS / channels chunks that a CTA walks in order, channel
+    tiles per head (the grid is tiles x H x B) and the shared memory a
+    CTA takes, in bytes."""
+    L: int
+    n_chunks: int
+    channels: int
+    groups: int
+    tiles: int
+    smem: int
+
+
+def launch_geometry(B: int, T: int, C: int, H: int, d: int,
+                    sms: int) -> Geometry:
+    """The launch ``csrc/s4_scan.cu`` makes for u [B, T, C], H heads and
+    d modes on a card with ``sms`` SMs. Shared memory: per mode (d
+    rounded up to 8) the power table dec^0..dec^L, the readout weights
+    and carried states of the tile's channels, and dec^L; then two u
+    tiles of a group, the warps' partial outputs, the lag kernels and the
+    local parts."""
+    e = C // H
+    kc = next((k for k, n in ((8, 4 * sms), (4, sms))
+               if B * H * -(-e // k) >= n), 2)
+    g = ROWS // kc
+    d8 = -(-d // 8) * 8
+    u_tile = g * (CHUNK * kc + (2 if kc == 2 else 4))
+    units = kc * -(-g // 8)
+    fixed = 2 * u_tile + 8 * ROWS * CHUNK + units * 2 * CHUNK + kc * g * CHUNK
+    smem = 4 * (d8 * (CHUNK + 4 + 2 * kc + 1) + fixed)
+    return Geometry(CHUNK, -(-T // CHUNK), kc, -(-T // (g * CHUNK)),
+                    -(-e // kc), smem)
 
 
 def scan_dw_conv(x: torch.Tensor, a_diag: torch.Tensor, b: torch.Tensor,
@@ -101,17 +137,12 @@ def _launch(u, a_diag, b, c_full):
     if any(t.device != u.device for t in (a_diag, b, c_full)):
         raise ValueError("s4_scan: tensors on different devices")
     lib = build.load("s4_scan")
-    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
-    L = chunk_len(B, T, C, sms)
-    n_chunks = -(-T // L)
     y = torch.empty_like(u)
-    state = torch.empty((B, n_chunks - 1, C, d), device=u.device,
-                        dtype=torch.float32)
     stream = torch.cuda.current_stream(u.device).cuda_stream
     with torch.cuda.device(u.device):
         rc = lib.ttsx_s4_scan_f32(
             u.data_ptr(), a_diag.data_ptr(), b.data_ptr(), c_full.data_ptr(),
-            state.data_ptr(), y.data_ptr(), B, T, C, H, d, L, stream)
+            y.data_ptr(), B, T, C, H, d, CHUNK, stream)
     build.check(rc, "ttsx_s4_scan_f32")
     s4_scan.launches += 1
     return y
