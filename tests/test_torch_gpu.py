@@ -207,6 +207,66 @@ def test_mel_frontend_kernel_matches_plain(cuda, n_fft, hop, n_mels, lengths,
         _close(got[i, tail:], ref[i, tail:], rtol=0, atol=1e-5)
 
 
+def _log_mel_f64(wav, cfg):
+    """The float64 log-mel by numpy's FFT: K3's reflect padding, window,
+    filterbank and floors."""
+    from ttsx_torch.dsp.stft import mel_filterbank, padded_window
+    n_fft, hop = cfg.n_fft, cfg.hop_length
+    x = np.pad(wav.astype(np.float64), ((0, 0), (n_fft // 2, n_fft // 2)),
+               mode="reflect")
+    frames = np.lib.stride_tricks.sliding_window_view(x, n_fft, axis=1)
+    spec = np.fft.rfft(frames[:, ::hop] * padded_window(cfg), axis=-1)
+    mag = np.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-12)
+    fb = mel_filterbank(cfg.sample_rate, n_fft, cfg.n_mels, cfg.f_min,
+                        cfg.f_max).astype(np.float64)
+    return np.log(mag @ fb + 1e-5)
+
+
+def _mel_signal(kind, rows, N, sr, rng):
+    t = np.arange(N) / sr
+    tones = np.stack([sum(0.3 / k * np.sin(2 * np.pi * f0 * k * t)
+                          for k in range(1, 6))
+                      for f0 in rng.uniform(90.0, 300.0, rows)])
+    noise = rng.standard_normal((rows, N))
+    return {"tones": tones, "tones_over_noise": tones + 1e-3 * noise,
+            "scale_1e3": 1e3 * noise, "noise": 0.3 * noise}[kind
+                                                           ].astype(np.float32)
+
+
+@pytest.mark.parametrize("n_fft,kind,N", [
+    (1024, "tones", 40000),
+    (1024, "tones_over_noise", 40000),
+    (1024, "scale_1e3", 40000),
+    (1024, "noise", 513),                 # N = n_fft/2 + 1, the shortest
+    (1024, "tones", 24 * 256 + 100),      # T = 25: 3 CTAs of 8 frames + 1
+    (256, "tones", 16000),
+    (256, "noise", 129),
+    (2048, "tones", 60000),
+    (2048, "noise", 1025)])
+def test_mel_frontend_kernel_f64_accurate(cuda, n_fft, kind, N):
+    """K3 against the float64 log-mel within K3_TOL, and no farther from
+    it than the plain version (dense f32) is, on tones (near-silent bands
+    between the harmonics, where plain is up to 5e-2 off), tones over
+    1e-3 noise, a 1e3-scale input, the shortest input and a T that is not
+    a multiple of the CTA's frames; n_fft 256, 1024 and 2048."""
+    sr = 16000 if n_fft == 256 else 22050
+    cfg = AudioConfig(sample_rate=sr, n_fft=n_fft, win_length=n_fft,
+                      hop_length=n_fft // 4,
+                      n_mels={256: 32, 1024: 80, 2048: 128}[n_fft],
+                      mel_normalize=False)
+    wav = _mel_signal(kind, 2, N, sr, np.random.default_rng(n_fft + N))
+    x = torch.as_tensor(wav).cuda()
+    before = log_mel.launches
+    got = log_mel(x, cfg)
+    torch.cuda.synchronize()
+    assert log_mel.launches == before + 1
+    exact = _log_mel_f64(wav, cfg)
+    got, plain = got.cpu().numpy(), log_mel_plain(x, cfg).cpu().numpy()
+    assert got.shape == exact.shape == (2, 1 + N // (n_fft // 4), cfg.n_mels)
+    np.testing.assert_allclose(got, exact, **K3_TOL)
+    assert np.abs(got - exact).max() <= np.abs(plain - exact).max()
+
+
 def test_mel_frontend_kernel_does_not_fall_back(cuda, monkeypatch):
     """A CUDA tensor and no kernel library: K3's wrapper raises, and the
     plain version does not run in its place."""

@@ -34,7 +34,7 @@ SIGNATURES = {
     "upsample": {"ttsx_upsample_f32": [_P] * 4 + [_I] * 5 + [_P]},
     "resblock_stack": {
         "ttsx_resblock_stack_f32": [_P] * 7 + [_I] * 10 + [_P]},
-    "mel_frontend": {"ttsx_mel_frontend_f32": [_P] * 5 + [_I] * 5 + [_P]},
+    "mel_frontend": {"ttsx_mel_frontend_f32": [_P] * 7 + [_I] * 5 + [_P]},
     "s4_scan": {"ttsx_s4_scan_f32": [_P] * 5 + [_I] * 6 + [_P]},
     "resblock": {"ttsx_resblock_f32": [_P] * 8 + [_I] * 4 + [_P]},
 }
