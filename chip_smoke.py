@@ -49,6 +49,26 @@ Run from the root of a checkout. Phases, one JSON line each:
    (every block on K5: 12 launches, no K2) on the request's refined mel
    agrees with the K2 route. ``main_synth --zoo --sde --frames 864
    --device cuda`` writes one wav and prints its JSON line.
+4c. serve_bf16: the same requests through ``serve_from_zoo(device="cuda",
+   bf16=True, ...)`` (the reference's default: float32 parameters and VQ
+   statistics cast to bfloat16, float inputs cast, every layer promoting
+   as JAX does): finite, non-silent waveforms of ``len * 256`` samples;
+   K1 and K2 launched 4 times each; mel0, mel_ref and the waveform
+   float32, as in the reference; the same bf16 server with both kernel
+   flags off within phase 4's tolerance; and each request's distance from
+   phase 4's f32 waveform at most 1.5 times and at least 0.5 times the
+   reference's own |bf16 - f32| on that request (``BF16_REF_DIST``, ttsx
+   on the CPU): a server that left its products in float32 reads 0.
+4d. voice: ``make_voice_transform`` on the bf16 server's pipeline, request
+   1's refined mel (864 frames) re-voiced with style id 1 and the GST
+   style of request 2's refined mel: a finite, non-silent waveform of
+   864 * 256 samples, K1 and K2 4 launches each, and the plain route
+   within phase 4's tolerance.
+4e. stream: ``StreamingSynthesizer`` (chunks of 256 frames, overlap 16) on
+   phase 4's f32 pipeline with a 30 s request (2,592 frames, 11 chunks):
+   a finite, non-silent waveform of 2,592 * 256 samples, K1 and K2 4
+   launches per chunk; one 256-frame request through the streamer equals
+   a direct ``synthesize`` call within ``STREAM_DIRECT_TOL``.
 5. train: a seeded wav tree (32 utterances of 1.5-4 s: 4 speakers x 2
    domains x 2 styles, with transcripts) through the trainer's path at
    the full width of ``tts_cfg()`` (batch 16, 2 micro-batches a step,
@@ -81,7 +101,10 @@ Run from the root of a checkout. Phases, one JSON line each:
    (batch 1 and 4) beside its plain version, the fft route's time at the
    same shape (``ssm_kernel`` + ``fft_dw_conv``) and its bound, K4 and
    the fft route both replayed from a CUDA graph (device time; their
-   short kernels make eager event timing read the host) and eager; K5 per
+   short kernels make eager event timing read the host) and eager; one 10
+   s request at batch 1 in bf16 beside f32 (median of five, interleaved,
+   after a warm-up), with each stage's time in both and each request's
+   peak memory beyond what was allocated before it; K5 per
    block shape (graph replay and eager) beside its plain version and
    bound, and three K5 launches against one K2 launch per stage; at
    batch 1 one refiner pass and
@@ -156,6 +179,19 @@ SDE_WAV_TOL = WAV_TOL   # the same waveforms, and K5's route vs K2's;
 SDE_REPEATS = 3         # end-to-end SDE requests timed per mode
 SERVE_LAUNCHES = {"upsample": 4, "resblock_stack": 4, "mel_frontend": 0,
                   "s4_scan": 0, "resblock": 0}   # one served forward
+# the reference's own max |wav(bf16 server) - wav(f32 server)| on each of
+# the three requests at --seed 0 (bucket of 864 frames, both kernel flags
+# on; ttsx on the CPU, printed by tests/test_torch_zoo_slow.py::
+# test_zoo_bf16_server_at_864_frames_matches_reference); another seed
+# takes the largest of them as every request's ceiling and the smallest
+# as its floor
+BF16_REF_DIST = (6.460e-4, 5.899e-4, 5.669e-4)
+BF16_REF_FACTOR = 1.5   # phase 4c: |bf16 - f32| <= this * BF16_REF_DIST
+BF16_REF_FLOOR = 0.5    # phase 4c: |bf16 - f32| >= this * BF16_REF_DIST
+STREAM_FRAMES = 2592    # a 30 s request: 11 chunks of 256 with overlap 16
+STREAM_CHUNK, STREAM_OVERLAP = 256, 16
+STREAM_DIRECT_TOL = 1e-5   # one chunk through the streamer vs synthesize
+BF16_REPEATS = 5        # 10 s requests timed per dtype
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -741,7 +777,7 @@ def sde_batch(pipe, reqs, batch: int, scale_stats, seed: int):
     import torch
     from ttsx_torch.serve import SynthesisServer
     srv = SynthesisServer(pipe, device="cuda", max_batch=batch, frames=FRAMES,
-                          scale_stats=scale_stats.cpu())
+                          bf16=False, scale_stats=scale_stats.cpu())
     *arrays, lens = srv.pad_batch(reqs)
     rc = pipe.cfg.refiner
     g = torch.Generator("cuda").manual_seed(seed)
@@ -919,6 +955,264 @@ def time_sde(pipe_p, pipe_f, arrays, scale, noise):
             e2e.append((time.perf_counter() - t1) * 1e3)
         out[f"e2e_ms_{mode}"] = float(np.median(e2e))
         out[f"e2e_ms_all_{mode}"] = e2e
+    return out
+
+
+# ------------------------------------------------- bf16 serving, voice, stream
+def served(srv, reqs, what: str):
+    """``srv.serve_batch(reqs)`` with the launch counters zeroed just
+    before and read just after, each waveform checked (finite, not
+    silent, float32, len * hop samples): (waveforms, counts, seconds)."""
+    import numpy as np
+    import torch
+    from ttsx_torch import ops
+    hop = srv.cfg.vocoder.hop_length
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t1 = time.time()
+    wavs = srv.serve_batch(reqs)
+    secs = time.time() - t1
+    launches = ops.launch_counts()
+    for w_, r in zip(wavs, reqs):
+        n_ = len(r.text_emb)
+        if (w_.shape != (n_ * hop,) or w_.dtype != np.float32
+                or not np.isfinite(w_).all()):
+            fail(f"{what}: bad waveform, shape {w_.shape}, dtype {w_.dtype}, "
+                 f"finite {bool(np.isfinite(w_).all())}, want {n_ * hop} "
+                 "float32 samples")
+        if float(np.abs(w_).max()) < SILENT:
+            fail(f"{what}: silent waveform for a {n_}-frame request")
+    return wavs, launches, secs
+
+
+def serve_bf16_phase(reqs, wavs_f32, seed: int):
+    """Phase 4c (see the module docstring). Returns the phase's fields,
+    the bf16 server, its plain twin's pipeline and the stages of the
+    padded bucket."""
+    import numpy as np
+    import torch
+    from ttsx_torch import ops
+    from ttsx_torch.serve import SynthesisServer
+    from ttsx_torch.zoo import serve_from_zoo
+    t1 = time.time()
+    srv = serve_from_zoo(device="cuda", bf16=True, max_batch=MAX_BATCH,
+                         frames=FRAMES)
+    load_s = time.time() - t1
+    if srv.dtype != torch.bfloat16 or {p.dtype for p in
+                                       srv.pipe.parameters()} != {
+                                           torch.bfloat16}:
+        fail("the bf16 server does not hold bfloat16 parameters")
+    wavs, launches, serve_s = served(srv, reqs, "bf16 serve")
+    if launches != SERVE_LAUNCHES:
+        fail(f"bf16 serve: launches {launches}, want {SERVE_LAUNCHES}")
+    *arrays, _ = srv.pad_batch(reqs)
+    arrays = [torch.as_tensor(a, device="cuda") for a in arrays]
+    stages = srv.stages(*arrays)
+    dtypes = {k: str(getattr(stages, k).dtype).replace("torch.", "")
+              for k in ("mel0", "mel_ref", "wav")}
+    plain_pipe = srv.pipe.with_vocoder_kernels(False)
+    plain = SynthesisServer(plain_pipe, device="cuda", max_batch=MAX_BATCH,
+                            frames=FRAMES, bf16=True,
+                            scale_stats=srv.scale_stats.cpu())
+    wavs_plain, plain_launches, _ = served(plain, reqs, "bf16 serve (plain)")
+    del plain
+    plain_err = max(float(np.abs(a - b).max())
+                    for a, b in zip(wavs, wavs_plain))
+    ref = BF16_REF_DIST if seed == 0 else (max(BF16_REF_DIST),) * len(reqs)
+    ref_lo = (BF16_REF_DIST if seed == 0
+              else (min(BF16_REF_DIST),) * len(reqs))
+    dist = [float(np.abs(a - b).max()) for a, b in zip(wavs, wavs_f32)]
+    bound = [BF16_REF_FACTOR * r for r in ref]
+    floor = [BF16_REF_FLOOR * r for r in ref_lo]
+    fields = dict(
+        zoo_load_s=load_s, serve_s=serve_s, requests=list(REQUEST_FRAMES),
+        launches=launches, stage_dtypes=dtypes,
+        peak=[float(np.abs(w_).max()) for w_ in wavs],
+        wav_max_abs_err_vs_plain=plain_err, wav_tolerance=WAV_TOL,
+        plain_launches=plain_launches,
+        wav_max_abs_diff_vs_f32=dist,
+        wav_rms_diff_vs_f32=[float(np.sqrt(np.mean((a - b) ** 2)))
+                             for a, b in zip(wavs, wavs_f32)],
+        reference_bf16_vs_f32=list(ref), bound_vs_f32=bound,
+        floor_vs_f32=floor)
+    if set(dtypes.values()) != {"float32"}:
+        fail(f"bf16 serve: stage dtypes {dtypes}, the reference's are "
+             "float32")
+    if any(plain_launches.values()):
+        fail("the plain bf16 path launched a kernel")
+    if plain_err > WAV_TOL:
+        fail(f"bf16 serve: kernel path differs from plain by {plain_err}")
+    if any(d > b for d, b in zip(dist, bound)):
+        fail(f"bf16 serve: |bf16 - f32| {dist} exceeds {BF16_REF_FACTOR} x "
+             f"the reference's own {list(ref)}")
+    if any(d < f for d, f in zip(dist, floor)):
+        fail(f"bf16 serve: |bf16 - f32| {dist} below {BF16_REF_FLOOR} x "
+             f"the reference's own {list(ref_lo)}: the bf16 rounding did "
+             "not take effect")
+    return fields, srv, plain_pipe, (arrays, stages)
+
+
+def voice_phase(srv, plain_pipe, bucket):
+    """Phase 4d (see the module docstring)."""
+    import numpy as np
+    import torch
+    from ttsx_torch import ops
+    from ttsx_torch.serve import make_voice_transform
+    arrays, stages = bucket
+    mel_src = stages.mel_ref[:1]
+    ref_mel = stages.mel_ref[1:2, :REQUEST_FRAMES[1]]
+    pros = arrays[1][:1].to(srv.dtype)
+    sid = torch.ones(1, dtype=torch.long, device="cuda")
+    hop = srv.cfg.vocoder.hop_length
+    outs = {}
+    for route, pipe in (("kernels", srv.pipe), ("plain", plain_pipe)):
+        fn = make_voice_transform(pipe)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t1 = time.time()
+        wav = fn(mel_src, pros, sid, ref_mel)
+        torch.cuda.synchronize()
+        outs[route] = dict(wav=wav, launches=ops.launch_counts(),
+                           s=time.time() - t1)
+    wav = outs["kernels"]["wav"]
+    w_ = wav.float().cpu().numpy()
+    err = float((wav - outs["plain"]["wav"]).abs().max())
+    fields = dict(mel_src_frames=int(mel_src.shape[1]),
+                  ref_mel_frames=int(ref_mel.shape[1]), style_id_tgt=1,
+                  dtype=str(wav.dtype).replace("torch.", ""),
+                  samples=int(w_.shape[1]), peak=float(np.abs(w_).max()),
+                  launches=outs["kernels"]["launches"],
+                  plain_launches=outs["plain"]["launches"],
+                  first_call_s=outs["kernels"]["s"],
+                  wav_max_abs_err_vs_plain=err, wav_tolerance=WAV_TOL)
+    if w_.shape != (1, FRAMES * hop, 1) or not np.isfinite(w_).all():
+        fail(f"voice transform: bad waveform {w_.shape}, finite "
+             f"{bool(np.isfinite(w_).all())}")
+    if fields["peak"] < SILENT:
+        fail("voice transform: silent waveform")
+    if outs["kernels"]["launches"] != SERVE_LAUNCHES:
+        fail(f"voice transform: launches {outs['kernels']['launches']}, "
+             f"want {SERVE_LAUNCHES}")
+    if any(outs["plain"]["launches"].values()):
+        fail("the plain voice transform launched a kernel")
+    if err > WAV_TOL:
+        fail(f"voice transform: kernels differ from plain by {err}")
+    return fields
+
+
+def stream_phase(pipe, seed: int):
+    """Phase 4e (see the module docstring)."""
+    import numpy as np
+    import torch
+    from ttsx_torch import ops
+    from ttsx_torch.streaming import StreamingSynthesizer
+    ss = StreamingSynthesizer(pipe, chunk_frames=STREAM_CHUNK,
+                              overlap_frames=STREAM_OVERLAP, device="cuda")
+    cfg, ac = pipe.cfg, pipe.cfg.acoustic
+    rng = np.random.default_rng(seed + 1)
+    n = STREAM_FRAMES
+    x = dict(text=rng.standard_normal((1, n, ac.text_emb_dim)),
+             pros=rng.standard_normal((1, n, ac.cond_dim)),
+             emo=rng.dirichlet(np.ones(ac.emotion_dim))[None],
+             spk=0.5 * rng.standard_normal((1, ac.speaker_dim)))
+    x = {k: v.astype(np.float32) for k, v in x.items()}
+    sid = np.array([int(rng.integers(0, cfg.refiner.num_styles))])
+    chunks = ss.chunks(n)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t1 = time.time()
+    wav = ss.synthesize(x["text"], x["pros"], x["emo"], x["spk"], sid)
+    secs = time.time() - t1
+    launches = ops.launch_counts()
+    want = dict(SERVE_LAUNCHES, upsample=4 * len(chunks),
+                resblock_stack=4 * len(chunks))
+    # one chunk's length: the streamer against a direct call
+    m = STREAM_CHUNK
+    short = ss.synthesize(x["text"][:, :m], x["pros"][:, :m], x["emo"],
+                          x["spk"], sid)
+    direct = pipe.synthesize(*(torch.as_tensor(a, device="cuda") for a in (
+        x["text"][:, :m], x["pros"][:, :m], x["emo"], x["spk"])),
+        torch.as_tensor(sid, device="cuda")).wav[:, :, 0].cpu().numpy()
+    direct_err = float(np.abs(short - direct).max())
+    fields = dict(frames=n, chunk=STREAM_CHUNK, overlap=STREAM_OVERLAP,
+                  chunks=len(chunks), samples=int(wav.shape[1]),
+                  seconds_audio=n * ss.hop / cfg.vocoder.sr,
+                  synth_s=secs, peak=float(np.abs(wav).max()),
+                  launches=launches, want_launches=want,
+                  one_chunk_vs_direct_max_abs=direct_err,
+                  one_chunk_tolerance=STREAM_DIRECT_TOL)
+    if wav.shape != (1, n * ss.hop) or not np.isfinite(wav).all():
+        fail(f"stream: bad waveform {wav.shape}, finite "
+             f"{bool(np.isfinite(wav).all())}")
+    if fields["peak"] < SILENT:
+        fail("stream: silent waveform")
+    if launches != want:
+        fail(f"stream: launches {launches}, want {want}")
+    if direct_err > STREAM_DIRECT_TOL:
+        fail(f"stream: one chunk differs from a direct call by {direct_err}")
+    return fields
+
+
+def time_bf16(pipe, reqs, scale_stats):
+    """One 10 s request at batch 1 through a bf16 and an f32 server on the
+    same f32 pipeline: each stage's time (CUDA events, inputs cast as the
+    server casts them), a refiner pass and the acoustic model replayed
+    from a CUDA graph (device time, without the host's cost of issuing
+    each kernel), the request end to end (host clock around
+    ``serve_batch``, BF16_REPEATS each after a warm-up, interleaved) and
+    each request's peak memory beyond what was allocated before it."""
+    import numpy as np
+    import torch
+    from ttsx_torch.serve import SynthesisServer
+    t0 = time.time()
+    srvs = {dt: SynthesisServer(pipe, device="cuda", max_batch=1,
+                                frames=FRAMES, bf16=dt == "bf16",
+                                scale_stats=scale_stats.cpu())
+            for dt in ("f32", "bf16")}
+    out = {}
+    *arr, _ = srvs["f32"].pad_batch(reqs[:1])
+    for dt, srv in srvs.items():
+        text, pros, emo, spk = (torch.as_tensor(a, device="cuda")
+                                .to(srv.dtype) for a in arr[:4])
+        sid = torch.as_tensor(arr[4], device="cuda")
+        p = srv.pipe
+        scale = srv.scale_stats.expand(1, -1)
+        with torch.inference_mode():
+            mel0 = p.acoustic(text, pros, emo, speaker=spk).mel
+            mel_ref = p.refiner(mel0, pros, sid, text).mel_ref
+            style = p.gst(mel_ref)
+            out[f"stages_ms_{dt}"] = {
+                "acoustic": cuda_ms(lambda: p.acoustic(text, pros, emo,
+                                                       speaker=spk)),
+                "refiner": cuda_ms(lambda: p.refiner(mel0, pros, sid, text)),
+                "gst": cuda_ms(lambda: p.gst(mel_ref)),
+                "generator": cuda_ms(lambda: p.generator(
+                    mel_ref, pros, style, emo, scale=scale))}
+            out[f"graph_ms_{dt}"] = {
+                "acoustic": graph_ms(lambda: p.acoustic(
+                    text, pros, emo, speaker=spk), reps=3),
+                "refiner": graph_ms(lambda: p.refiner(
+                    mel0, pros, sid, text), reps=3)}
+        srv.serve_batch(reqs[:1])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        srv.serve_batch(reqs[:1])
+        torch.cuda.synchronize()
+        out[f"request_peak_mem_gb_{dt}"] = (
+            torch.cuda.max_memory_allocated() - base) / 1e9
+    e2e = {dt: [] for dt in srvs}
+    for _ in range(BF16_REPEATS):
+        for dt, srv in srvs.items():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            srv.serve_batch(reqs[:1])
+            e2e[dt].append((time.perf_counter() - t1) * 1e3)
+    for dt, v in e2e.items():
+        out[f"e2e_ms_{dt}"] = float(np.median(v))
+        out[f"e2e_ms_all_{dt}"] = v
+    out["bf16_over_f32"] = out["e2e_ms_bf16"] / out["e2e_ms_f32"]
+    out["seconds"] = time.time() - t0
     return out
 
 
@@ -1248,7 +1542,8 @@ def main(argv=None) -> int:
              f"{SERVE_LAUNCHES}")
     plain_pipe = srv.pipe.with_vocoder_kernels(False)
     plain = SynthesisServer(plain_pipe, device="cuda", max_batch=MAX_BATCH,
-                            frames=FRAMES, scale_stats=srv.scale_stats.cpu())
+                            frames=FRAMES, bf16=False,
+                            scale_stats=srv.scale_stats.cpu())
     ops.reset_launches()
     wavs_plain = plain.serve_batch(reqs)
     if any(ops.launch_counts().values()):
@@ -1273,6 +1568,20 @@ def main(argv=None) -> int:
                              args.seed)
     emit("sde", t0, **sde)
     k5_launches = sde["per_block_route"]["launches"]["resblock"]
+
+    # -- 4c. bf16 serving (the reference's default) on the same requests
+    t0 = time.time()
+    bf16, srv_bf, plain_bf, bucket = serve_bf16_phase(reqs, wavs, args.seed)
+    emit("serve_bf16", t0, **bf16)
+
+    # -- 4d. the voice transform on the bf16 server's pipeline
+    t0 = time.time()
+    emit("voice", t0, **voice_phase(srv_bf, plain_bf, bucket))
+    del srv_bf, plain_bf, bucket
+
+    # -- 4e. streaming synthesis of a 30 s request on the f32 pipeline
+    t0 = time.time()
+    emit("stream", t0, **stream_phase(srv.pipe, args.seed))
 
     # -- 5. the acoustic + refiner trainer on a wav tree, K3 in the collator
     t0 = time.time()
@@ -1300,7 +1609,7 @@ def main(argv=None) -> int:
     rows = {b: time_kernels(shapes[b], gen, dil) for b in shapes}
     # model stages and one 10 s request end to end (batch 1)
     one = SynthesisServer(srv.pipe, device="cuda", max_batch=1, frames=FRAMES,
-                          scale_stats=srv.scale_stats.cpu())
+                          bf16=False, scale_stats=srv.scale_stats.cpu())
     *arr, _ = one.pad_batch(reqs[:1])
     text, pros, emo, spk, sid = (torch.as_tensor(a_, device=one.device)
                                  for a_ in arr)
@@ -1330,18 +1639,19 @@ def main(argv=None) -> int:
     k5_rows = {b: time_k5(k5_stages(pipe_p.generator, b, gen))
                for b in (1, MAX_BATCH)}
     sde_times = time_sde(pipe_p, pipe_f, *sde_one)
+    timing_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bf16_times = time_bf16(srv.pipe, reqs, srv.scale_stats)
     emit("timing", t0, kernels_by_batch=rows, mel_frontend=mel_rows,
          s4_scan_by_batch=k4_rows,
          resblock_by_batch={b: v[0] for b, v in k5_rows.items()},
          resblock_stage_vs_k2_by_batch={b: v[1] for b, v in k5_rows.items()},
-         sde_batch1=sde_times,
+         sde_batch1=sde_times, serve_bf16_vs_f32_batch1=bf16_times,
          collate_ms_median_at_k3_shape=k3_collate_ms,
          k3_share_of_collate=(mel_row["ms"] / k3_collate_ms if same
                               else None),
          stages_batch1=stages,
          e2e_ms_10s_request=sorted(e2e)[len(e2e) // 2], e2e_ms_all=e2e,
-         audio_s=FRAMES * hop / vc.sr,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+         audio_s=FRAMES * hop / vc.sr, peak_mem_gb=timing_peak_gb)
 
     # the kernels line reads the main path's shapes: the serving bucket
     main_rows, main_checks = rows[MAX_BATCH], checks[MAX_BATCH]

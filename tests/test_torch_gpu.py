@@ -1,5 +1,6 @@
 """Tests that need a CUDA card (``gpu`` marker): the CUDA kernels against
-their plain PyTorch versions, the zoo served through K1 and K2, and K3,
+their plain PyTorch versions (K1, K2 and K5 also on bf16 operands), the
+zoo served through K1 and K2 in f32 and in bf16, and K3,
 K4 and K5 refusing to fall back when their library is missing (K4 and K5,
 which are forward-only, also refuse a call that needs a gradient).
 
@@ -156,7 +157,7 @@ def test_serve_from_zoo_through_kernels(cuda):
     one forward, and the plain path within 5e-4 of it."""
     from ttsx_torch.serve import SynthesisRequest, SynthesisServer
     from ttsx_torch.zoo import serve_from_zoo
-    srv = serve_from_zoo(max_batch=2, frames=64)
+    srv = serve_from_zoo(max_batch=2, frames=64, bf16=False)
     ac = srv.cfg.acoustic
     rng = np.random.default_rng(0)
     reqs = [SynthesisRequest(
@@ -174,10 +175,97 @@ def test_serve_from_zoo_through_kernels(cuda):
         assert o.shape == (n * 256,) and np.isfinite(o).all()
         assert float(np.abs(o).max()) > 1e-3
     plain = SynthesisServer(srv.pipe.with_vocoder_kernels(False),
-                            max_batch=2, frames=64,
+                            max_batch=2, frames=64, bf16=False,
                             scale_stats=srv.scale_stats.cpu())
     for a, b in zip(outs, plain.serve_batch(reqs)):
         np.testing.assert_allclose(a, b, rtol=0, atol=5e-4)
+
+
+def test_serve_from_zoo_bf16_through_kernels(cuda):
+    """The zoo's default server (bf16, as the reference's) on the card:
+    K1 and K2 launched 4 times each, float32 stage outputs, finite and
+    non-silent waveforms, the plain bf16 path within 5e-4 of it."""
+    from ttsx_torch.serve import SynthesisRequest, SynthesisServer
+    from ttsx_torch.zoo import serve_from_zoo
+    srv = serve_from_zoo(max_batch=2, frames=64)
+    assert srv.dtype == torch.bfloat16
+    ac = srv.cfg.acoustic
+    rng = np.random.default_rng(1)
+    reqs = [SynthesisRequest(
+        rng.standard_normal((n, ac.text_emb_dim)).astype(np.float32),
+        rng.standard_normal((n, ac.cond_dim)).astype(np.float32),
+        np.full(ac.emotion_dim, 1 / ac.emotion_dim, np.float32),
+        rng.standard_normal(ac.speaker_dim).astype(np.float32), i)
+        for i, n in enumerate((64, 40))]
+    ops.reset_launches()
+    outs = srv.serve_batch(reqs)
+    assert ops.launch_counts() == {"upsample": 4, "resblock_stack": 4,
+                                   "mel_frontend": 0, "s4_scan": 0,
+                                   "resblock": 0}
+    for o, n in zip(outs, (64, 40)):
+        assert o.shape == (n * 256,) and o.dtype == np.float32
+        assert np.isfinite(o).all() and float(np.abs(o).max()) > 1e-3
+    *arrays, _ = srv.pad_batch(reqs)
+    out = srv.stages(*(torch.as_tensor(a, device="cuda") for a in arrays))
+    assert {out.mel0.dtype, out.mel_ref.dtype, out.wav.dtype} == {
+        torch.float32}
+    plain = SynthesisServer(srv.pipe.with_vocoder_kernels(False),
+                            max_batch=2, frames=64,
+                            scale_stats=srv.scale_stats.cpu())
+    assert {p.dtype for p in plain.pipe.generator.parameters()} == {
+        torch.bfloat16}
+    for a, b in zip(outs, plain.serve_batch(reqs)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize("kernel", ["upsample", "resblock_stack",
+                                    "resblock"])
+@pytest.mark.parametrize("which", ["weights", "x"])
+def test_kernels_take_bf16_operands(cuda, kernel, which):
+    """K1, K2 and K5 on bf16 weights (f32 x), or on a bf16 x and FiLM:
+    the kernel casts them to f32 as the reference kernels do, launches,
+    and returns x's dtype; against the plain version on the same
+    operands within the kernel's tolerance (a bf16 output within one bf16
+    step of plain's: 2**-7 relative at most)."""
+    bf = torch.bfloat16
+    dt_x, dt_w = ((torch.float32, bf) if which == "weights"
+                  else (bf, torch.float32))
+    if kernel == "upsample":
+        f, cin, cout = 8, 64, 32
+        args = [_randn(cuda, 4, 100, cin).to(dt_x),
+                _randn(cuda, 2 * f, cin, cout,
+                       scale=(2 * cin) ** -0.5).to(dt_w),
+                _randn(cuda, cout).to(dt_w)]
+        fn, plain, extra, tol = convt_upsample, convt_upsample_plain, f, K1_TOL
+    else:
+        C = 32
+        if kernel == "resblock_stack":
+            n = 3
+            args = [_randn(cuda, 8, 700, C).to(dt_x),
+                    _randn(cuda, 2, 20, 2 * n * C, scale=0.3).to(dt_x)]
+            shapes = ((n, 3, C, 2 * C), (n, 2 * C), (n, 3, C, C), (n, C))
+            fn, plain, extra, tol = (film_resblock_stack,
+                                     film_resblock_stack_plain, (1, 3, 5),
+                                     K2_TOL)
+        else:
+            args = [_randn(cuda, 2, 300, C).to(dt_x)] + [
+                _randn(cuda, 2, 300, C, scale=0.3).to(dt_x)
+                for _ in range(2)]
+            shapes = ((3, C, 2 * C), (2 * C,), (3, C, C), (C,))
+            fn, plain, extra, tol = film_resblock, film_resblock_plain, 3, \
+                K5_TOL
+        args += [_randn(cuda, *s, scale=(3 * C) ** -0.5 if len(s) > 1
+                        else 0.1).to(dt_w) for s in shapes]
+    before = ops.KERNELS[kernel].launches
+    with torch.no_grad():
+        got = fn(*args, extra)
+        want = plain(*args, extra)
+    torch.cuda.synchronize()
+    assert ops.KERNELS[kernel].launches == before + 1
+    assert got.dtype == want.dtype == dt_x
+    if dt_x == bf:
+        tol = dict(tol, rtol=2.0 ** -7)
+    _close(got.float(), want.float(), **tol)
 
 
 @pytest.mark.parametrize("n_fft,hop,n_mels,lengths,N", [

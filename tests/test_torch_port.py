@@ -165,8 +165,12 @@ def test_server_refuses_what_it_cannot_do():
     pipe = _tiny_pipe()
     with pytest.raises(ValueError, match="scale_stats"):
         SynthesisServer(pipe, device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        SynthesisServer(pipe, device="cpu", bf16=True, scale_stats=randn(0, 160))
+    # bf16 serving is ported: the server builds and serves a request
+    srv = SynthesisServer(pipe, device="cpu", bf16=True, max_batch=1,
+                          frames=8, scale_stats=randn(0, 160))
+    (wav,) = srv.serve_batch(_requests([8], pipe.cfg))
+    assert wav.dtype == np.float32 and wav.shape == (8 * 32,)
+    assert np.isfinite(wav).all()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             SynthesisServer(pipe, scale_stats=randn(0, 160))

@@ -5,7 +5,23 @@ flags on, so the generator takes the kernels' plain versions).
 Marked slow: the reference compiles the full-width chain on the CPU,
 which takes minutes. Stated tolerance: waveform within 1e-4 absolute,
 mels within 1e-3 absolute.
+
+The bf16 case serves ``chip_smoke.py``'s three requests (864, 600 and
+300 frames from seed 0) one at a time in a bucket of 864 frames through
+the reference's f32 and bf16 servers, the reference's bf16 server
+compiled with every op rounded to its dtype
+(``xla_allow_excess_precision=False``), and the port's bf16 server. It
+prints the reference's own |bf16 - f32| per request, the number
+chip_smoke's phase 4c holds the card to (``BF16_REF_DIST``). The port is
+held within ``ZOO_BF16_OP_TOL`` of the op-by-op reference, within
+``ZOO_BF16_TOL`` of the reference's bf16 server as it runs (XLA's excess
+precision skips some bf16 roundings there: measured 1.2e-4 to 3.0e-4
+from the port, against bf16-to-f32 distances of 5.7e-4 to 6.5e-4), and
+no farther from the reference's f32 waveform than 1.5 times the
+reference's bf16 waveform is, plus 1e-6.
 """
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -42,3 +58,62 @@ def test_zoo_text_to_waveform_matches_reference():
                                rtol=0, atol=1e-3)
     np.testing.assert_allclose(got.wav.numpy(), np.asarray(ref.wav),
                                rtol=0, atol=1e-4)
+
+
+ZOO_BF16_OP_TOL = 1e-5
+ZOO_BF16_TOL = 5e-4
+
+
+def _op_by_op(srv):
+    """The reference server's three stage programs compiled with every op
+    rounded to its dtype (compiled once, at the bucket's shapes)."""
+    def wrap(fn):
+        cache = []
+
+        def run(*args):
+            if not cache:
+                cache.append(jax.jit(fn).lower(*args).compile(
+                    compiler_options={"xla_allow_excess_precision": False}))
+            return cache[0](*args)
+        return run
+    for name in ("_ac_fn", "_rf_fn", "_gg_fn"):
+        setattr(srv, name, wrap(getattr(srv, name)))
+    return srv
+
+
+def test_zoo_bf16_server_at_864_frames_matches_reference():
+    import chip_smoke
+    from ttsx.core import config as jc
+    from ttsx.serve import SynthesisRequest as JRequest
+    from ttsx.zoo import serve_from_zoo as j_serve
+    from ttsx_torch.core import config as tc
+    from ttsx_torch.zoo import serve_from_zoo
+    srv = serve_from_zoo(device="cpu", max_batch=1, frames=864)
+    assert srv.dtype == torch.bfloat16
+    cfg = srv.cfg
+    assert cfg.vocoder.use_pallas_upsample
+    assert cfg.vocoder.use_pallas_resblock_stack
+    reqs = chip_smoke.requests(cfg, 0)
+    got = srv.serve_batch(reqs)
+    jcfg = jc.from_dict(jc.TTSXConfig, tc.to_dict(cfg))
+    jreqs = [JRequest(**vars(r)) for r in reqs]
+    kw = dict(cfg=jcfg, max_batch=1, frames=864)
+    ref = {bf: j_serve(bf16=bf, **kw).serve_batch(jreqs)
+           for bf in (True, False)}
+    op = _op_by_op(j_serve(bf16=True, **kw)).serve_batch(jreqs)
+    dist = [float(np.abs(b - f).max()) for b, f in zip(ref[True], ref[False])]
+    diff = lambda xs, ys: [float(np.abs(x - y).max()) for x, y in zip(xs, ys)]
+    print(json.dumps({"requests": [len(r.text_emb) for r in reqs],
+                      "reference_bf16_minus_f32_max_abs": dist,
+                      "port_bf16_minus_reference_f32_max_abs":
+                          diff(got, ref[False]),
+                      "port_bf16_minus_reference_bf16_max_abs":
+                          diff(got, ref[True]),
+                      "port_bf16_minus_reference_bf16_op_by_op_max_abs":
+                          diff(got, op)}))
+    for g, b, o, f, d in zip(got, ref[True], op, ref[False], dist):
+        assert g.shape == b.shape and g.dtype == np.float32
+        assert d > 1e-6
+        assert float(np.abs(g - f).max()) <= 1.5 * d + 1e-6
+        np.testing.assert_allclose(g, o, rtol=0, atol=ZOO_BF16_OP_TOL)
+        np.testing.assert_allclose(g, b, rtol=0, atol=ZOO_BF16_TOL)

@@ -5,8 +5,32 @@ Layout mirrors ``ttsx``: ``core`` (configs), ``nn`` (layers), ``models``
 (acoustic, refiner, vocoder, pipeline), ``ops`` (hand-written CUDA
 kernels with their plain PyTorch versions), ``dsp`` and ``data`` (the
 trainer's data path), ``train`` (blocks and engine), ``cli``,
-``weights`` (flax tree / slim npz -> state dicts), ``zoo`` and ``serve``.
-Importing the package loads no kernel and needs neither a card nor a
-compiler.
+``weights`` (flax tree / slim npz -> state dicts), ``zoo``, ``serve``
+and ``streaming``. The serving surface is exported here, imported on
+first use as in ``ttsx``. Importing the package loads no kernel and needs
+neither a card nor a compiler.
 """
 __version__ = "0.1.0"
+
+# name -> "module:attr" (resolved on first access)
+_EXPORTS = {
+    "SynthesisRequest": "ttsx_torch.serve:SynthesisRequest",
+    "SynthesisServer": "ttsx_torch.serve:SynthesisServer",
+    "make_voice_transform": "ttsx_torch.serve:make_voice_transform",
+    "StreamingSynthesizer": "ttsx_torch.streaming:StreamingSynthesizer",
+    "serve_from_zoo": "ttsx_torch.zoo:serve_from_zoo",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    try:
+        target = _EXPORTS[name]
+    except KeyError:
+        raise AttributeError(f"module 'ttsx_torch' has no attribute {name!r}")
+    import importlib
+    mod, attr = target.split(":")
+    value = getattr(importlib.import_module(mod), attr)
+    globals()[name] = value
+    return value

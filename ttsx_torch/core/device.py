@@ -18,10 +18,15 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def set_f32_numerics() -> None:
-    """Full-f32 matmuls and convolutions on the card: no TF32 anywhere.
+    """Full-f32 matmuls and convolutions on the card: no TF32 anywhere,
+    and bf16 matmuls reduce in f32, as XLA's bf16 dots do (the bf16
+    server's products with two bf16 operands).
 
     cuDNN convolutions default to TF32 (about three decimal digits), and
-    this model's quality readout has moved with matmul precision before."""
+    this model's quality readout has moved with matmul precision before.
+    cuBLAS may otherwise reduce a bf16 product's split-K partial sums in
+    bf16."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.set_float32_matmul_precision("highest")

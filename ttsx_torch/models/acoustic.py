@@ -22,7 +22,7 @@ from ttsx_torch.nn.conv import Conv1d, ConvTranspose1d
 from ttsx_torch.nn.draws import Draws
 from ttsx_torch.nn.embed import rotary_mix
 from ttsx_torch.nn.film import ResidualConvBlock
-from ttsx_torch.nn.layers import Dense, Embed
+from ttsx_torch.nn.layers import Dense, Embed, silu
 
 
 class AcousticOutput(NamedTuple):
@@ -52,7 +52,7 @@ class EmotionEncoder(nn.Module):
         p = torch.relu(self.Dense_0(prosody))
         e = torch.relu(self.Dense_1(emotion))[:, None].expand_as(p)
         h = torch.relu(self.Dense_2(torch.cat([p, e], dim=-1)))
-        return F.silu(self.Dense_3(h)) * self.intensity
+        return silu(self.Dense_3(h)) * self.intensity
 
 
 class VarianceAdaptor(nn.Module):

@@ -68,12 +68,13 @@ class TTSPipeline(nn.Module):
     def with_vocoder_kernels(self, on: bool) -> "TTSPipeline":
         """A pipeline sharing this one's acoustic, refiner and GST modules,
         with a copy of the generator whose CUDA-kernel flags are ``on``
-        (the flags change no parameter)."""
+        (the flags change no parameter; the copy keeps their dtypes)."""
         vc = dataclasses.replace(self.cfg.vocoder, use_pallas_upsample=on,
                                  use_pallas_resblock_stack=on)
         c = self.cfg
         gen = Generator(vc, c.acoustic.cond_dim, c.acoustic.emotion_dim)
-        gen.load_state_dict(self.generator.state_dict())
+        gen.load_state_dict({k: v.clone() for k, v in
+                             self.generator.state_dict().items()}, assign=True)
         dev = next(self.generator.parameters()).device
         return TTSPipeline(dataclasses.replace(c, vocoder=vc),
                            acoustic=self.acoustic, refiner=self.refiner,

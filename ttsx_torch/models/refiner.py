@@ -16,13 +16,12 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
-import torch.nn.functional as F
 
 from ttsx_torch.core.config import RefinerConfig
 from ttsx_torch.nn.conv import Conv1d
 from ttsx_torch.nn.draws import Draws
 from ttsx_torch.nn.embed import sinusoidal_table
-from ttsx_torch.nn.layers import Dense, Embed, gelu
+from ttsx_torch.nn.layers import Dense, Embed, gelu, silu
 from ttsx_torch.nn.moe import GumbelMoE
 from ttsx_torch.nn.s4 import S4
 from ttsx_torch.nn.tf_block import HSFLayer, TFBlock
@@ -122,15 +121,16 @@ class ScoreSDERefiner(nn.Module):
             t = (mel0.new_full((B, 1), 0.5) if draws is None
                  else draws.uniform((B, 1)))
         beta = self.BetaScheduler_0(t)                          # [B, 1]
-        c_pros = self.Dense_1(F.silu(self.Dense_0(prosody)))
+        c_pros = self.Dense_1(silu(self.Dense_0(prosody)))
         style = self.style_embedding(style_id)
         cond = (c_pros + self.style_proj(style)[:, None]
                 + self.seg_proj(text_emb.mean(dim=1))[:, None])
+        pe = self.pe.to(mel0.dtype)       # as the reference casts it
         outs, offset = [], 0
         for i, bsz in enumerate(cfg.bands):
             band = mel0[..., offset:offset + bsz]
             pe_tok = getattr(self, f"pe_proj_{i}")(
-                self.pe[offset:offset + bsz].reshape(-1))
+                pe[offset:offset + bsz].reshape(-1))
             y = torch.cat([band, pe_tok + cond], dim=-1)
             outs.append(getattr(self, f"band_{i}")(y, style, draws))
             offset += bsz

@@ -24,12 +24,11 @@ from typing import Optional
 
 import torch
 from torch import nn
-import torch.nn.functional as F
 
 from ttsx_torch.core.config import VocoderConfig
 from ttsx_torch.nn.attention import SelfAttention1d
 from ttsx_torch.nn.conv import Conv1d, ConvTranspose1d
-from ttsx_torch.nn.layers import Dense, LayerNorm, leaky_relu
+from ttsx_torch.nn.layers import Dense, LayerNorm, leaky_relu, silu
 from ttsx_torch.ops import convt_upsample, film_resblock, film_resblock_stack
 from ttsx_torch.ops.resblock_stack import nearest_rows
 
@@ -145,7 +144,7 @@ class Generator(nn.Module):
         cfg = self.cfg
         B, T, C = mel.shape
         nb = cfg.num_bands
-        cond = (self.Dense_1(F.silu(self.Dense_0(prosody)))
+        cond = (self.Dense_1(silu(self.Dense_0(prosody)))
                 + self.style_proj(style)[:, None]
                 + self.emotion_proj(emotion)[:, None])
         if cfg.scale_cond:

@@ -1,8 +1,9 @@
 """Attention blocks (``ttsx/nn/attention.py``).
 
 ``MHSA`` holds flax ``MultiHeadDotProductAttention``'s parameters as four
-linear maps: query/key/value kernels [D, H, D/H] become [H*D/H, D] torch
-weights, the out kernel [H, D/H, D] becomes [D, H*D/H]. Scores use
+linear maps (``Dense``, so each promotes as flax's ``DenseGeneral``):
+query/key/value kernels [D, H, D/H] become [H*D/H, D] torch weights, the
+out kernel [H, D/H, D] becomes [D, H*D/H]. Scores use
 explicit f32 matmuls, with the query scaled by 1/sqrt(D/H) as flax does.
 In a training forward (``draws`` given) the attention weights take
 flax's broadcast dropout: one [Tq, Tk] mask shared by batch and heads.
@@ -19,14 +20,14 @@ from ttsx_torch.nn.draws import Draws
 from ttsx_torch.nn.layers import Dense
 
 
-class _HeadsIn(nn.Linear):
+class _HeadsIn(Dense):
     def from_flax_leaves(self, leaves):
         k = np.asarray(leaves["kernel"])              # [D, H, Dh]
         return {"weight": k.reshape(k.shape[0], -1).T,
                 "bias": np.asarray(leaves["bias"]).reshape(-1)}
 
 
-class _HeadsOut(nn.Linear):
+class _HeadsOut(Dense):
     def from_flax_leaves(self, leaves):
         k = np.asarray(leaves["kernel"])              # [H, Dh, D]
         return {"weight": k.reshape(-1, k.shape[-1]).T,

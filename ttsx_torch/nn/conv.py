@@ -8,7 +8,10 @@ torch's ``padding="same"`` rejects stride > 1, so the pad is explicit.
 ``ConvTranspose1d`` keeps torch's weight layout [Cin, Cout, k]; flax's
 [k, Cin, Cout] kernel arrives reversed along k (settled by
 tests/test_torch_nn.py). Its forward runs the tap-bank form of
-``ops.upsample.convt_upsample_plain`` (k = 2*stride, cropped to T*stride).
+``ops.upsample.convt_taps`` (k = 2*stride, cropped to T*stride).
+
+Both compute in the promoted dtype of the input and their parameters,
+as flax's ``nn.Conv`` and ``nn.ConvTranspose`` do.
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from ttsx_torch.ops.upsample import convt_upsample_plain
+from ttsx_torch.nn.layers import add_bias, is_16bit, promote_dtype
+from ttsx_torch.ops.upsample import convt_taps
 
 
 def same_pads(t: int, k: int, stride: int = 1, dilation: int = 1):
@@ -55,10 +59,13 @@ class Conv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lo, hi = self.pads(x.shape[1])
+        x, w, b = promote_dtype(x, self.weight, self.bias)
         h = F.pad(x.transpose(1, 2), (lo, hi))
-        y = F.conv1d(h, self.weight, self.bias, self.stride,
+        split = is_16bit(x)      # then flax's bias sum rounds on its own
+        y = F.conv1d(h, w, None if split else b, self.stride,
                      dilation=self.dilation, groups=self.groups)
-        return y.transpose(1, 2)
+        y = y.transpose(1, 2)
+        return add_bias(y, b) if split else y
 
     def from_flax_leaves(self, leaves):
         out = {"weight": np.asarray(leaves["kernel"]).transpose(2, 1, 0)}
@@ -85,7 +92,8 @@ class ConvTranspose1d(nn.Module):
         return self.weight.flip(-1).permute(2, 0, 1).contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return convt_upsample_plain(x, self.tap_weight(), self.bias, self.stride)
+        return convt_taps(*promote_dtype(x, self.tap_weight(), self.bias),
+                          self.stride)
 
     def from_flax_leaves(self, leaves):
         k = np.asarray(leaves["kernel"])           # [k, Cin, Cout]

@@ -4,11 +4,10 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-import torch.nn.functional as F
 
 from ttsx_torch.nn.conv import Conv1d
 from ttsx_torch.nn.draws import Draws, dropout
-from ttsx_torch.nn.layers import Dense
+from ttsx_torch.nn.layers import Dense, silu
 
 
 class ScaleNorm(nn.Module):
@@ -47,8 +46,8 @@ class ResidualConvBlock(nn.Module):
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 draws: Draws | None = None) -> torch.Tensor:
         y = self.Conv1d_1(self.Conv1d_0(self.ScaleNorm_0(x)))
-        y = F.silu(self.ScaleNorm_1(y))
-        scale, shift = self.Dense_1(F.silu(self.Dense_0(cond))).chunk(2, -1)
+        y = silu(self.ScaleNorm_1(y))
+        scale, shift = self.Dense_1(silu(self.Dense_0(cond))).chunk(2, -1)
         y = self.gamma * dropout(y * (1.0 + scale) + shift, self.dropout,
                                  draws)
         if draws is not None and self.sd_prob > 0.0:

@@ -5,6 +5,7 @@ import torch
 from torch import nn
 
 from ttsx_torch.nn.conv import Conv1d
+from ttsx_torch.nn.layers import promote_dtype
 
 
 class GlobalStyleTokens(nn.Module):
@@ -18,4 +19,5 @@ class GlobalStyleTokens(nn.Module):
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         logits = self.Conv1d_1(torch.relu(self.Conv1d_0(mel)))
         weights = torch.softmax(logits, dim=1)          # over T
-        return torch.einsum("btn,nd->bd", weights, self.tokens)
+        return torch.einsum("btn,nd->bd",
+                            *promote_dtype(weights, self.tokens))

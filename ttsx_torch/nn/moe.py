@@ -7,7 +7,7 @@ import torch
 from torch import nn
 
 from ttsx_torch.nn.draws import Draws, dropout
-from ttsx_torch.nn.layers import Dense
+from ttsx_torch.nn.layers import Dense, matmul, softmax
 
 
 class GumbelMoE(nn.Module):
@@ -29,8 +29,8 @@ class GumbelMoE(nn.Module):
         if draws is not None:
             u = draws.uniform(logits.shape, 1e-20, 1.0)
             logits = logits - torch.log(-torch.log(u))
-        gates = dropout(torch.softmax(logits / self.tau, dim=-1),
+        gates = dropout(softmax(logits / self.tau, dim=-1),
                         self.dropout, draws)
         w_mix = torch.einsum("be,eio->bio", gates, self.experts_w)
         b_mix = gates @ self.experts_b
-        return torch.bmm(x, w_mix) + b_mix[:, None, :]
+        return matmul(x, w_mix) + b_mix[:, None, :]

@@ -10,18 +10,23 @@ version); ``"pallas"`` runs it through kernel K4
 forward (``draws`` given) drops out the gated branch and,
 with one mask per (batch, channel) shared over time, the low-rank
 residual.
+
+Dtypes follow the reference: ``a_diag`` and the input gains stay float32
+(constants, never cast with the parameters); the readout ``c_full`` takes
+the parameters' dtype; the fft route transforms in float32 and returns
+its input's dtype; products with mixed operands promote.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
-import torch.nn.functional as F
 
 from ttsx_torch.core.config import S4Config
 from ttsx_torch.nn.conv import Conv1d
 from ttsx_torch.nn.draws import Draws, dropout
-from ttsx_torch.nn.layers import GroupNorm, LayerNorm
+from ttsx_torch.nn.layers import (GroupNorm, LayerNorm, matmul, promote_dtype,
+                                  silu)
 from ttsx_torch.ops.s4_scan import s4_scan, scan_dw_conv
 
 KERNEL_MODES = ("auto", "fft", "scan", "pallas")
@@ -38,21 +43,23 @@ def ssm_kernel(a_diag: torch.Tensor, b: torch.Tensor, c_full: torch.Tensor,
     t = torch.arange(length, dtype=torch.float32, device=a_diag.device)
     decay = torch.exp(torch.clamp(a_diag[:, None, :] * t[None, :, None],
                                   -50.0, 50.0))
-    k = torch.einsum("htd,hde->hte", decay * b[:, None, :], c_full)
+    k = torch.einsum("htd,hde->hte",
+                     *promote_dtype(decay * b[:, None, :], c_full))
     h, L, e = k.shape
     return k.permute(0, 2, 1).reshape(h * e, L)
 
 
 def fft_dw_conv(x: torch.Tensor, w: torch.Tensor, causal: bool) -> torch.Tensor:
-    """Depthwise long convolution via rFFT: x [B, T, C], w [C, L]."""
+    """Depthwise long convolution via rFFT: x [B, T, C], w [C, L],
+    transformed in float32; the result in x's dtype."""
     T = x.shape[1]
     L = w.shape[-1]
     n = _next_pow2(T + L - 1)
-    xf = torch.fft.rfft(x, n=n, dim=1)
-    kf = torch.fft.rfft(w, n=n, dim=-1)
+    xf = torch.fft.rfft(x.float(), n=n, dim=1)
+    kf = torch.fft.rfft(w.float(), n=n, dim=-1)
     y = torch.fft.irfft(xf * kf.T[None], n=n, dim=1)
     s = 0 if causal else (L - 1) // 2
-    return y[:, s:s + T]
+    return y[:, s:s + T].to(x.dtype)
 
 
 class S4(nn.Module):
@@ -111,7 +118,8 @@ class S4(nn.Module):
         y = y + pb.repeat_interleave(self.d, dim=0).T[None]
         y = self.Conv1d_0(y)
         a_g, b_g = self.Conv1d_1(y).chunk(2, dim=-1)
-        y = dropout(a_g * F.silu(b_g), cfg.dropout, draws)
-        res = (h @ self.V.reshape(C, -1)) @ self.U.reshape(C, -1).T
+        y = dropout(a_g * silu(b_g), cfg.dropout, draws)
+        res = matmul(matmul(h, self.V.reshape(C, -1)),
+                     self.U.reshape(C, -1).T)
         y = y + dropout(res, cfg.dropout, draws, broadcast_dims=(1,))
         return self.GroupNorm_0(y)

@@ -8,7 +8,9 @@ them in place, as the reference's training forward does: an EMA k-means
 step (decay 0.95) on the codes the batch chose, then a restart of every
 code whose EMA usage fell below ``dead_thresh`` from a batch row picked
 by a prime stride. The quantized value and the 0.25-weighted commitment
-loss read the codebook from before the update.
+loss read the codebook from before the update. As in the reference, the
+codebook is formed in the statistics' dtype (bfloat16 once a server has
+cast them) and the distances run in float32; the output takes x's dtype.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ class VectorQuantizer(nn.Module):
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [..., C] -> (straight-through quantized x, commitment loss)."""
         with torch.no_grad():
-            cb = self.codebook()
+            cb = self.codebook().float()
             flat = x.detach().reshape(-1, x.shape[-1]).float()
             dist = (flat.square().sum(1, keepdim=True) - 2.0 * flat @ cb.T
                     + cb.square().sum(1)[None, :])

@@ -139,6 +139,15 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
+def as_f32(*ts):
+    """The kernels' operands in float32, as the reference kernels cast
+    theirs: a bfloat16 or float16 tensor becomes its float32 copy (exact),
+    any other passes as it is, for ``check_tensor`` to take or refuse
+    (float64 is refused, never narrowed)."""
+    return [t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
+            for t in ts]
+
+
 def check_tensor(t, ndim: int, name: str):
     """Shape of ``t`` after checking it is a contiguous f32 tensor of
     ``ndim`` dims, as the kernels take it."""

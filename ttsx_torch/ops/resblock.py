@@ -17,7 +17,9 @@ convs in 3xTF32: operations at C >= 64, bytes at C <= 32.
 K5 is forward-only, as the reference kernel (no VJP there): on a CUDA
 tensor a call that would need a gradient raises. ``film_resblock``
 launches the kernel for a CUDA tensor and runs ``film_resblock_plain``
-for a CPU tensor; any other device raises.
+for a CPU tensor; any other device raises. Both take their operands in
+float32, bfloat16 or float16, compute in float32 and return x's dtype,
+as the reference kernel does.
 """
 from __future__ import annotations
 
@@ -44,12 +46,16 @@ def film_resblock_plain(x: torch.Tensor, scale: torch.Tensor,
                         dilation: int) -> torch.Tensor:
     """x, scale, shift [B, T, C]; w1 [3, C, 2C]; b1 [2C]; w2 [3, C, C];
     b2 [C] -> x + conv3(lrelu(glu(conv3_d(lrelu(x))) * (1 + scale) +
-    shift))."""
+    shift)), computed on the operands cast as the kernel casts them
+    (``build.as_f32``) and returned in x's dtype."""
+    dtype = x.dtype
+    x, scale, shift, w1, b1, w2, b2 = build.as_f32(x, scale, shift, w1, b1,
+                                                   w2, b2)
     C = x.shape[-1]
     u = conv3(F.leaky_relu(x, 0.1), w1, dilation) + b1
     g = u[..., :C] * torch.sigmoid(u[..., C:])
     g = F.leaky_relu(g * (1.0 + scale) + shift, 0.1)
-    return x + conv3(g, w2, 1) + b2
+    return (x + conv3(g, w2, 1) + b2).to(dtype)
 
 
 def film_resblock(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
@@ -71,6 +77,9 @@ def _launch(x, scale, shift, w1, b1, w2, b2, dilation):
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         raise RuntimeError("resblock: K5 is forward-only and has no "
                            "gradient; run it under torch.no_grad()")
+    dtype = x.dtype
+    args = build.as_f32(*args)
+    x, scale, shift, w1, b1, w2, b2 = args
     B, T, C = build.check_tensor(x, 3, "x")
     shapes = {"scale": (scale, (B, T, C)), "shift": (shift, (B, T, C)),
               "w1": (w1, (3, C, 2 * C)), "b1": (b1, (2 * C,)),
@@ -94,4 +103,4 @@ def _launch(x, scale, shift, w1, b1, w2, b2, dilation):
             C, dilation, stream)
     build.check(rc, "ttsx_resblock_f32")
     film_resblock.launches += 1
-    return y
+    return y.to(dtype)

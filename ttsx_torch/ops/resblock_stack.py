@@ -17,8 +17,10 @@ with ``(t * Tf) // T``. Its device code (``csrc/film_resblock.cuh``) is
 shared with K5, and its plain version runs K5's plain version block by
 block.
 
-``resblock_stack`` launches the kernel for a CUDA tensor and runs
+``film_resblock_stack`` launches the kernel for a CUDA tensor and runs
 ``film_resblock_stack_plain`` for a CPU tensor; any other device raises.
+Both take their operands in float32, bfloat16 or float16, compute in
+float32 and return x's dtype, as the reference kernel does.
 """
 from __future__ import annotations
 
@@ -46,7 +48,11 @@ def film_resblock_stack_plain(x: torch.Tensor, film: torch.Tensor,
                          dilations: Sequence[int]) -> torch.Tensor:
     """x [B, T, C]; film [Bf, Tf, 2nC] (scale_i | shift_i per block, at
     any rate Tf, batch Bf dividing B: row b of x reads film b % Bf);
-    w1s [n, 3, C, 2C]; b1s [n, 2C]; w2s [n, 3, C, C]; b2s [n, C]."""
+    w1s [n, 3, C, 2C]; b1s [n, 2C]; w2s [n, 3, C, C]; b2s [n, C].
+    Computed on the operands cast as the kernel casts them
+    (``build.as_f32``), returned in x's dtype."""
+    dtype = x.dtype
+    x, film, w1s, b1s, w2s, b2s = build.as_f32(x, film, w1s, b1s, w2s, b2s)
     B, T, C = x.shape
     Bf, Tf = film.shape[:2]
     rows = nearest_rows(T, Tf, x.device)
@@ -55,7 +61,7 @@ def film_resblock_stack_plain(x: torch.Tensor, film: torch.Tensor,
         fi = fi.repeat(B // Bf, 1, 1)
         x = film_resblock_plain(x, fi[..., :C], fi[..., C:], w1s[i], b1s[i],
                                 w2s[i], b2s[i], d)
-    return x
+    return x.to(dtype)
 
 
 def film_resblock_stack(x: torch.Tensor, film: torch.Tensor, w1s: torch.Tensor,
@@ -73,6 +79,8 @@ film_resblock_stack.launches = 0
 def _launch(x, film, w1s, b1s, w2s, b2s, dilations):
     if x.device.type != "cuda":
         raise ValueError(f"resblock_stack: unsupported device {x.device}")
+    dtype = x.dtype
+    x, film, w1s, b1s, w2s, b2s = build.as_f32(x, film, w1s, b1s, w2s, b2s)
     B, T, C = build.check_tensor(x, 3, "x")
     Bf, Tf, fw = build.check_tensor(film, 3, "film")
     n = len(dilations)
@@ -102,4 +110,4 @@ def _launch(x, film, w1s, b1s, w2s, b2s, dilations):
             n, *d, stream)
     build.check(rc, "ttsx_resblock_stack_f32")
     film_resblock_stack.launches += 1
-    return y
+    return y.to(dtype)

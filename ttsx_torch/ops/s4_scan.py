@@ -30,7 +30,9 @@ grows with d, which caps it at ``MAX_MODES``.
 K4 is forward-only, as the reference kernel (no VJP there): on a CUDA
 tensor a call that would need a gradient raises. ``s4_scan`` launches the
 kernel for a CUDA tensor and runs ``scan_dw_conv`` (the plain version)
-for a CPU tensor; any other device raises.
+for a CPU tensor; any other device raises. Both take their operands in
+float32, bfloat16 or float16, compute in float32 and return u's dtype,
+as the reference kernel does.
 """
 from __future__ import annotations
 
@@ -99,7 +101,7 @@ def scan_dw_conv(x: torch.Tensor, a_diag: torch.Tensor, b: torch.Tensor,
     ys = []
     for t in range(T):
         s = s * decay + u[:, t, :, :, None] * bb
-        ys.append(torch.einsum("bhed,hde->bhe", s, c_full))
+        ys.append(torch.einsum("bhed,hde->bhe", s, c_full.float()))
     return torch.stack(ys, dim=1).reshape(B, T, C).to(x.dtype)
 
 
@@ -122,6 +124,8 @@ def _launch(u, a_diag, b, c_full):
         raise RuntimeError("s4_scan: K4 is forward-only and has no "
                            "gradient; run the layer under torch.no_grad() "
                            "or with kernel_mode 'fft' or 'scan'")
+    dtype = u.dtype
+    u, a_diag, b, c_full = build.as_f32(u, a_diag, b, c_full)
     B, T, C = build.check_tensor(u, 3, "u")
     H, d = build.check_tensor(a_diag, 2, "a_diag")
     if C % H:
@@ -145,4 +149,4 @@ def _launch(u, a_diag, b, c_full):
             y.data_ptr(), B, T, C, H, d, CHUNK, stream)
     build.check(rc, "ttsx_s4_scan_f32")
     s4_scan.launches += 1
-    return y
+    return y.to(dtype)

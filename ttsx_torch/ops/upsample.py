@@ -12,9 +12,12 @@ f*Cout, K = Cin for each of a column's two tap banks) on the tensor cores in
 products are summed in f32, which keeps the error near f32's, so the f32
 gates hold; see the source's header for the tiles.
 
-``upsample`` launches the kernel for a CUDA tensor and runs
+``convt_upsample`` launches the kernel for a CUDA tensor and runs
 ``convt_upsample_plain`` (the same tap-bank arithmetic in PyTorch) for a CPU
-tensor; any other device raises.
+tensor; any other device raises. Both take x and the weights in float32,
+bfloat16 or float16, compute in float32 and return x's dtype, as the
+reference kernel does (its products are float32, its output cast back to
+x.dtype).
 """
 from __future__ import annotations
 
@@ -41,10 +44,11 @@ def tap_banks(w: torch.Tensor, f: int):
                  for n in ("prev", "cur", "next"))
 
 
-def convt_upsample_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                   f: int) -> torch.Tensor:
-    """x [B, T, Cin], w [2f, Cin, Cout] (tap-major), b [Cout] ->
-    ConvTranspose1d(k=2f, stride=f) cropped to [B, T*f, Cout]."""
+def convt_taps(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               f: int) -> torch.Tensor:
+    """x [B, T, Cin], w [2f, Cin, Cout] (tap-major), b [Cout], all of one
+    dtype, computed in it -> ConvTranspose1d(k=2f, stride=f) cropped to
+    [B, T*f, Cout]."""
     if w.shape[0] != 2 * f:
         raise ValueError(f"kernel has {w.shape[0]} taps, expected 2*{f}")
     B, T, _ = x.shape
@@ -54,6 +58,13 @@ def convt_upsample_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     x_next = torch.nn.functional.pad(x[:, 1:], (0, 0, 0, 1))
     y = x @ w_cur + x_next @ w_next + x_prev @ w_prev
     return y.reshape(B, T * f, cout) + b
+
+
+def convt_upsample_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                         f: int) -> torch.Tensor:
+    """K1's plain version: ``convt_taps`` on the operands cast as the
+    kernel casts them (``build.as_f32``), returned in x's dtype."""
+    return convt_taps(*build.as_f32(x, w, b), f).to(x.dtype)
 
 
 def convt_upsample(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -70,6 +81,8 @@ convt_upsample.launches = 0
 def _launch(x, w, b, f):
     if x.device.type != "cuda":
         raise ValueError(f"upsample: unsupported device {x.device}")
+    dtype = x.dtype
+    x, w, b = build.as_f32(x, w, b)
     B, T, cin = build.check_tensor(x, 3, "x")
     k, wcin, cout = build.check_tensor(w, 3, "w")
     build.check_tensor(b, 1, "b")
@@ -89,4 +102,4 @@ def _launch(x, w, b, f):
                                    y.data_ptr(), B, T, cin, cout, f, stream)
     build.check(rc, "ttsx_upsample_f32")
     convt_upsample.launches += 1
-    return y
+    return y.to(dtype)

@@ -1,14 +1,29 @@
-"""Fixed-bucket batched synthesis serving (``ttsx/serve.py``).
+"""Fixed-bucket batched synthesis serving and the voice transform
+(``ttsx/serve.py``).
 
-Requests are padded into a (max_batch, frames) bucket, run through
-``TTSPipeline.synthesize(use_sde=False)`` on the device, and trimmed back
-to ``len * hop`` samples each; batches above ``max_batch`` are split.
-On the card the server states full f32 numerics (no TF32). The reference's
-``chain`` and ``mesh`` options have no counterpart here, and bf16 serving
-is not ported yet (``bf16=True`` raises).
+Requests are padded into a (max_batch, frames) bucket, run through the
+pipeline's ``synthesize`` (acoustic -> refiner -> GST + generator) on
+the device, and trimmed back to ``len * hop`` samples each; batches above
+``max_batch`` are split. On the card the server states full f32 numerics
+(no TF32, bf16 products reduced in f32).
+
+``bf16`` (the default, as in the reference) serves a copy of the
+pipeline whose float32 parameters and VQ statistics are cast to bfloat16
+(``weights.cast_float32``) and casts the float inputs to bfloat16. As in
+the reference this is not bfloat16 compute: every layer promotes its
+input and parameters as JAX does, so the graph returns to float32 at its
+first float32 operand (the rotary tables, the refiner's mel, a norm's
+statistics) and the stage outputs ``mel0``, ``mel_ref`` and the waveform
+are float32. The reference's ``chain`` and ``mesh`` options have no
+counterpart here.
+
+``make_voice_transform`` re-voices a mel: the refiner on zero text, the
+target's style id, the generator with uniform emotion and the GST style
+of the target's reference mel.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -16,7 +31,8 @@ import numpy as np
 import torch
 
 from ttsx_torch.core.device import resolve_device, set_f32_numerics
-from ttsx_torch.models.pipeline import TTSPipeline
+from ttsx_torch.models.pipeline import SynthesisOutput, TTSPipeline
+from ttsx_torch.weights import cast_float32
 
 
 @dataclass
@@ -30,16 +46,18 @@ class SynthesisRequest:
 
 class SynthesisServer:
     def __init__(self, pipe: TTSPipeline, device="cuda", max_batch: int = 8,
-                 frames: int = 512, bf16: bool = False,
+                 frames: int = 512, bf16: bool = True,
                  loudness_peak: Optional[float] = None,
                  scale_stats: Optional[np.ndarray] = None):
-        if bf16:
-            raise NotImplementedError("bf16 serving is not ported yet")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_f32_numerics()
         self.cfg = pipe.cfg
-        self.pipe = pipe.to(self.device)
+        pipe = pipe.to(self.device)
+        # the caller's pipeline keeps its dtypes; the server casts a copy
+        self.pipe = (cast_float32(copy.deepcopy(pipe), torch.bfloat16)
+                     if bf16 else pipe)
+        self.dtype = torch.bfloat16 if bf16 else torch.float32
         # a scale_cond generator needs [mean || std] mel stats; a text->wav
         # request has no target utterance, so the train-corpus mean vector
         # (the export meta's `mel_scale_mean`) is required
@@ -78,13 +96,21 @@ class SynthesisServer:
             lens[i] = t
         return text, pros, emo, spk, sid, lens
 
+    @torch.inference_mode()
+    def stages(self, text, pros, emo, spk, sid) -> SynthesisOutput:
+        """The padded batch, its float inputs cast to the server's dtype,
+        through ``TTSPipeline.synthesize``, each output in the dtype the
+        stage gives."""
+        scale = (None if self.scale_stats is None
+                 else self.scale_stats.expand(text.shape[0], -1))
+        return self.pipe.synthesize(
+            *(a.to(self.dtype) for a in (text, pros, emo, spk)), sid,
+            scale=scale)
+
     def run(self, text, pros, emo, spk, sid) -> torch.Tensor:
-        """The padded batch through the pipeline -> wav [B, T*hop, 1]."""
-        scale = None
-        if self.scale_stats is not None:
-            scale = self.scale_stats.expand(text.shape[0], -1)
-        return self.pipe.synthesize(text, pros, emo, spk, sid,
-                                    scale=scale).wav
+        """The padded batch through ``stages`` -> float32 wav
+        [B, T*hop, 1]."""
+        return self.stages(text, pros, emo, spk, sid).wav.float()
 
     def serve_batch(self, reqs: Sequence[SynthesisRequest]) -> List[np.ndarray]:
         if len(reqs) > self.max_batch:
@@ -101,3 +127,29 @@ class SynthesisServer:
             outs = [w * (self.loudness_peak / max(float(np.abs(w).max()), 1e-8))
                     for w in outs]
         return outs
+
+
+def make_voice_transform(pipe: TTSPipeline, prosody_model=None,
+                         prosody_params=None):
+    """``fn(mel_src [B, T, C], prosody_src [B, T, P], style_id_tgt [B],
+    ref_mel_tgt [B, T', C]) -> wav [B, T*hop, 1]``: re-voices the source
+    mel with the target's style embedding (``style_id_tgt``) and the
+    timbre the GST takes from ``ref_mel_tgt``. The refiner runs on zero
+    text embeddings, the generator on uniform emotion and without scale
+    conditioning (zeros for a scale_cond generator), as in the reference.
+    Tensors on the pipeline's device; it computes with the pipeline's
+    parameters as they are (a bf16 server's ``pipe`` for bf16).
+    ``prosody_model`` and ``prosody_params`` are accepted and unused, as
+    there."""
+    ac = pipe.cfg.acoustic
+
+    @torch.inference_mode()
+    def fn(mel_src, prosody_src, style_id_tgt, ref_mel_tgt):
+        B, T, _ = mel_src.shape
+        ref = pipe.refiner(mel_src, prosody_src, style_id_tgt,
+                           mel_src.new_zeros(B, T, ac.text_emb_dim))
+        style = pipe.gst(ref_mel_tgt)
+        emo = mel_src.new_full((B, ac.emotion_dim), 1.0 / ac.emotion_dim)
+        return pipe.generator(ref.mel_ref, prosody_src, style, emo)
+
+    return fn

@@ -116,3 +116,19 @@ def load_flax(module: nn.Module, tree: Mapping) -> nn.Module:
     """Fill ``module`` in place from a flax tree (strict); returns it."""
     module.load_state_dict(from_flax(module, tree), strict=True)
     return module
+
+
+def cast_float32(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast in place every float32 entry of ``module``'s state dict (its
+    parameters and the persistent buffers ``from_flax`` fills: the VQ
+    statistics) to ``dtype``; returns it. These are the float32 leaves of
+    the flax ``params`` and ``vq_stats`` trees, which the reference
+    server's bf16 switch casts. Non-persistent buffers are the constants
+    the reference builds in float32 inside its forward (the S4 layers'
+    ``a_diag``, the refiner's ``pe``) and stay float32; ``module.to(dtype)``
+    would cast them too."""
+    state = module.state_dict()
+    module.load_state_dict(
+        {k: v.to(dtype) if v.dtype == torch.float32 else v
+         for k, v in state.items()}, assign=True)
+    return module

@@ -57,9 +57,11 @@ def load_pipeline(cfg: Optional[TTSXConfig] = None,
 def serve_from_zoo(zoo_dir: Optional[str] = None,
                    cfg: Optional[TTSXConfig] = None, device="cuda",
                    **server_kw):
-    """A ready ``SynthesisServer`` on the zoo model. A scale_cond vocoder
-    gets the train-corpus ``mel_scale_mean`` from its export meta as
-    ``scale_stats`` unless the caller passes them."""
+    """A ready ``SynthesisServer`` on the zoo model, its options
+    (``bf16``, default on, ``max_batch``, ``frames``, ...) passed through
+    with the server's defaults, which are the reference's. A scale_cond
+    vocoder gets the train-corpus ``mel_scale_mean`` from its export meta
+    as ``scale_stats`` unless the caller passes them."""
     from ttsx_torch.serve import SynthesisServer
     pipe, meta = load_pipeline(cfg, zoo_dir, device)
     if "scale_stats" not in server_kw and "mel_scale_mean" in meta:
