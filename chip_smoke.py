@@ -5,7 +5,10 @@
 
 Run from the root of a checkout. Phases, one JSON line each:
 
-1. env: torch/CUDA versions, the card, ``nvidia-smi`` name and power limit.
+1. env: torch/CUDA versions, the card, ``nvidia-smi`` name and power limit,
+   and its clocks, power draw, temperature and throttle reasons
+   (``gpu_state``, read again before and after the train and timing
+   phases).
 2. build: nvcc of every ``ttsx_torch/ops/csrc/*.cu`` (in parallel) and the
    ptxas register / shared-memory / spill lines of each kernel.
 3. kernels: K1 (ConvT upsample) and K2 (FiLM resblock stack) against
@@ -72,19 +75,39 @@ Run from the root of a checkout. Phases, one JSON line each:
 5. train: a seeded wav tree (32 utterances of 1.5-4 s: 4 speakers x 2
    domains x 2 styles, with transcripts) through the trainer's path at
    the full width of ``tts_cfg()`` (batch 16, 2 micro-batches a step,
-   refiner every 2nd step): ``data_streams`` (dataset -> collator with K3
-   and f0 / energy on the card -> trainer batches) -> ``UnifiedTrainer``
-   for 6 engine steps -> one ``validate()``. Every K3 launch of the run
-   (input and output kept) is held afterwards to parts (1), (2) and (4)
-   of 3b's gate on its own batch. It fails unless that
-   holds, every loss is finite, K3 ran once per collated batch, the
+   refiner every 2nd step, the vocoder GAN every step on the step's first
+   micro-batch, its wav cut to whole generator hops by the length rule):
+   ``data_streams`` (dataset -> collator with K3 and f0 / energy on the
+   card -> trainer batches) -> ``UnifiedTrainer`` with its default three
+   blocks for 6 engine steps -> one ``validate()``. Every K3 launch of
+   the run (input and output kept) is held afterwards to parts (1), (2)
+   and (4) of 3b's gate on its own batch. It fails unless that
+   holds, every loss is finite, K3 ran once per collated batch and K1
+   and K2 not at all, the
    first update (lr 0)
    left the acoustic weights as they were and the second moved them, the
    refiner stepped 3 times and its VQ statistics moved, and the noise
-   scale and L1 weight follow the validation L1. On one batch of 2, the
-   first acoustic and refiner losses on the card agree with the port on
-   the CPU given the same draws (TF32 off). Step and collate times and
-   peak memory.
+   scale and L1 weight follow the validation L1; and, for the vocoder,
+   unless it trained on every step, ``d_loss``, ``g_loss`` and ``r1`` are
+   finite, R1 is non-zero on the first discriminator step and zero on the
+   second, after their second update every generator, GST and
+   discriminator parameter that had a non-zero gradient has moved, the
+   STFT loss's filterbank has not, and the generator's EMA is d * ema +
+   (1 - d) * params after each update. On one batch of 2, the first
+   acoustic and refiner losses, and on its first 32 frames the vocoder's
+   first ``d_total`` (with R1) and ``g_loss``, on the card agree with the
+   port on the CPU given the same draws (TF32 off). Step and collate
+   times and peak memory.
+5b. vocoder_export: ``save_vocoder_slim`` of the trained vocoder (EMA
+   generator and GST); a pipeline of the trained acoustic and refiner
+   models with both kernel flags on loads the export and serves one
+   864-frame request: a finite, non-silent waveform, K1 and K2 4 launches
+   each, within 5e-4 of the same pipeline with the flags off. Before
+   that, the kernel-flagged generator and K2 called under a gradient on
+   the card must raise (both kernels are forward-only) and launch
+   nothing. Last, the zoo's ``vocoder.npz`` warm-starts a
+   ``VocoderBlock`` at ``zoo_cfg(False)``, which takes one finite GAN step
+   on 4 rows x 32 frames of a collated batch.
 6. timing: CUDA-event times of each kernel beside its plain version (K1
    and K2 at the stage shapes above; K3 by graph replay, eager beside, at
    each batch shape the trainer collated and at the 10 s clip, with the
@@ -109,7 +132,12 @@ Run from the root of a checkout. Phases, one JSON line each:
    bound, and three K5 launches against one K2 launch per stage; at
    batch 1 one refiner pass and
    ``sde_sample`` in each mode, the generator's K2 and per-block routes,
-   and SDE requests end to end in each mode.
+   and SDE requests end to end in each mode. The vocoder's
+   ``disc_step`` with R1 and without and its ``gen_step``, plain and
+   with ``remat``, on the largest batch it trained on (two each, host
+   clock, the card synchronized),
+   with each one's peak memory, the work ``gan_work`` counts for that
+   batch, and the trainer's peak memory from phase 5.
 
 Then the ``{"kernels": [...]}`` line (K1 and K2 at the serving bucket's
 shapes: ``ms`` and the bounds summed over the four stage calls of one
@@ -132,7 +160,9 @@ rest of the repository beside it, it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import signal
 import subprocess
 import sys
@@ -153,6 +183,7 @@ PEAK_F64_FLOPS = 34e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 TIME_LIMIT_S = 1150
+START = time.time()
 
 FRAMES = 864            # one 10 s request at 22050 Hz, hop 256
 MAX_BATCH = 4           # the serving bucket: 4 requests x 864 frames
@@ -170,6 +201,8 @@ K3_TOL = (1e-4, 1e-4)   # log-mel against the float64 log-mel, and against
 K3_TAIL_TOL = 1e-5      # frames that see only zero padding: exact zeros
 TRAIN_STEPS = 6
 XDEV_RTOL = 1e-4        # first-step losses, card vs CPU, same draws
+XDEV_VOC_FRAMES = 32    # the vocoder's card-vs-CPU window (mel frames)
+GAN_REPEATS = 2         # vocoder steps timed per kind
 K4_TOL = (1e-4, 1e-4)   # the S4 recurrence; 7.7e-7 measured on an H100
 K5_TOL = (1e-4, 1e-4)   # one FiLM resblock; 6.7e-6 measured
 STAGE_TOL = K2_TOL      # three K5 launches against one K2 launch per stage
@@ -208,6 +241,20 @@ def nvidia_smi() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+GPU_STATE = ("clocks.sm", "clocks.max.sm", "clocks.mem", "power.draw",
+             "temperature.gpu", "clocks_throttle_reasons.active")
+
+
+def gpu_state() -> dict:
+    """The card's clocks (MHz), power draw, temperature and active
+    throttle reasons now, as ``nvidia-smi`` reads them."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=" + ",".join(GPU_STATE),
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    values = r.stdout.strip().splitlines()[0].split(", ")
+    return dict(zip(GPU_STATE, values), at_s=round(time.time() - START, 1))
 
 
 def cuda_ms(fn, target_ms: float = 150.0) -> float:
@@ -1252,10 +1299,68 @@ def write_wav_tree(root: Path, seed: int, sr: int) -> int:
     return n
 
 
+def gan_work(vc, batch: int, samples: int):
+    """Multiply-add operations (2 per MAC) of one forward of the generator
+    and of each discriminator on ``batch`` waveforms of ``samples`` (the
+    convolutions and transposed convolutions; the norms, FiLM, attention
+    and activations are left out), in TFLOP."""
+    def conv(t_out, cin, cout, k):
+        return 2.0 * batch * t_out * cin * cout * k
+    up = lambda t, s: -(-t // s)
+    g = vc.disc_ch_growth
+    mpd = 0.0
+    for p in vc.disc_periods:
+        h, cin = up(samples, p), 1
+        for _ in range(4):
+            h = up(h, 3)
+            mpd += conv(h * p, cin, cin * g, 5)
+            cin *= g
+        mpd += conv(h * p, cin, 1, 3)
+    msd, t = 0.0, samples
+    for ks in vc.disc_kernel_sizes[:3]:
+        tt, cin = t, 1
+        for i in range(5):
+            tt = up(tt, 2) if i < 3 else tt
+            msd += conv(tt, cin, cin * g, ks)
+            cin *= g
+        msd += conv(tt, cin, 1, 3)
+        t = up(t, 2)
+    mbd, chunk = 0.0, up(samples, vc.num_bands)
+    for _ in range(vc.num_bands):
+        tt, cin = chunk, 1
+        for _ in range(4):
+            tt = up(tt, 2)
+            mbd += conv(tt, cin, cin * g, 15)
+            cin *= g
+        mbd += conv(tt, cin, 1, 3)
+    nb, hop = vc.num_bands, math.prod(vc.upsample_factors)
+    t, ch = samples // hop, vc.hidden_dim
+    gen = nb * conv(t, vc.channels // nb, ch, 7)
+    for f in vc.upsample_factors:
+        gen += nb * conv(t * f, ch, ch // 2, 2)       # 2f taps over f phases
+        t, ch = t * f, ch // 2
+        gen += nb * len(vc.res_dilations) * conv(t, ch, ch, 9)
+    gen += conv(t, nb * ch, 1, 7)
+    return {k: v / 1e12 for k, v in
+            dict(generator=gen, mpd=mpd, msd=msd, mbd=mbd).items()}
+
+
+def xdev_window(batch, frames: int, hop: int):
+    """The first ``frames`` mel frames of a trainer batch and the wav's
+    first ``frames * hop`` samples."""
+    from ttsx_torch.train.blocks import FRAME_KEYS
+    out = {k: (v[:, :frames] if k in FRAME_KEYS and v.ndim >= 2 else v)
+           for k, v in batch.items()}
+    out["wav"] = batch["wav"][:, :frames * hop]
+    return out
+
+
 def cross_device_losses(cfg, batch, seed: int):
     """First-step acoustic and refiner losses of fresh blocks (same seed,
     same init) on the CPU, with its draws recorded, and on the card with
-    those draws replayed; the refiner takes the CPU's acoustic mel."""
+    those draws replayed; the refiner takes the CPU's acoustic mel. The
+    vocoder's first ``d_total`` (with R1) and ``g_loss`` likewise, on a
+    window of ``XDEV_VOC_FRAMES`` frames."""
     from ttsx_torch.nn.draws import RecordingDraws, ReplayDraws
     from ttsx_torch.train.blocks import AcousticBlock, RefinerBlock
     out = {}
@@ -1285,14 +1390,31 @@ def cross_device_losses(cfg, batch, seed: int):
         if name == "acoustic":
             out[name]["mel_pred_max_abs_diff"] = float(
                 (got_card["mel_pred"].cpu() - mel_pred).abs().max())
+    from ttsx_torch.train.blocks import VocoderBlock
+    cpu, card = VocoderBlock(cfg, "cpu", seed), VocoderBlock(cfg, "cuda", seed)
+    win = xdev_window(batch, XDEV_VOC_FRAMES, cpu.hop)
+    cpu.states["gen"].draws = RecordingDraws(cpu.states["gen"].draws)
+    got_cpu = {**cpu.disc_step(win), **cpu.gen_step(win)}
+    card.states["gen"].draws = ReplayDraws(
+        cpu.states["gen"].draws.records, "cuda")
+    got_card = {**card.disc_step(win), **card.gen_step(win)}
+    if not card.states["gen"].draws.exhausted():
+        fail("vocoder: the card drew less than the CPU")
+    for key in ("d_total", "g_loss"):
+        a, b = float(got_cpu[key]), float(got_card[key])
+        out[f"vocoder_{key}"] = dict(
+            loss_cpu=a, loss_card=b, rel_err=abs(a - b) / max(abs(a), 1e-30),
+            card_device=str(next(card.gen.parameters()).device),
+            window=list(win["wav"].shape), r1_cpu=float(got_cpu["r1"]),
+            r1_card=float(got_card["r1"]))
     return out
 
 
 def train_phase(seed: int, workdir: Path):
     """The trainer's main path at full width on the card; see the module
-    docstring (phase 5). Returns the phase's fields, the audio config
-    and one wav batch K3 ran on of each shape, largest first (for the
-    timing phase)."""
+    docstring (phase 5). Returns the phase's fields, the audio config,
+    one wav batch K3 ran on of each shape, largest first (for the timing
+    phase), the trainer, and the largest batch its vocoder trained on."""
     from ttsx_torch.core.config import tts_cfg
     from ttsx_torch.ops import mel_frontend as k3
     cfg = tts_cfg()
@@ -1308,7 +1430,7 @@ def train_phase(seed: int, workdir: Path):
 
     k3._launch = kept
     try:
-        fields = run_trainer(cfg, seed, workdir)
+        fields, trainer, gan_batch = run_trainer(cfg, seed, workdir)
     finally:
         k3._launch = launch
     checks = [k3_check(w, o, a, {"batch": slice(None)})
@@ -1329,10 +1451,116 @@ def train_phase(seed: int, workdir: Path):
              f"{[c for c in checks if not c['ok']]}")
     by_shape = {tuple(w.shape): w for w, _, _ in k3_seen}
     return fields, k3_seen[0][2], [by_shape[k] for k in sorted(
-        by_shape, key=lambda k: (k[1], k[0]), reverse=True)]
+        by_shape, key=lambda k: (k[1], k[0]), reverse=True)], trainer, \
+        gan_batch
+
+
+class GanWatch:
+    """Instruments the vocoder block of a trainer: each discriminator and
+    generator step's metrics and ms; for each part, the parameters with a
+    non-zero gradient at its first two updates and whether the second left
+    them moved from where they started; the largest |EMA - (d * ema + (1 -
+    d) * params)| over the generator's updates; the STFT filterbank."""
+
+    def __init__(self, voc):
+        self.voc, self.disc, self.gen, self.moved = voc, [], [], {}
+        self.start, self.nonzero, self.batch = {}, {}, None
+        self.ema_err = 0.0
+        self.fb0 = {k: v.clone() for k, v in voc.stft.state_dict().items()}
+        for kind in ("disc_step", "gen_step"):
+            setattr(voc, kind, self._timed(kind, getattr(voc, kind)))
+        for name, st in voc.states.items():
+            st.tx.step = self._watched(name, st, st.tx.step)
+        gen = voc.states["gen"]
+        apply = gen.apply_gradients
+
+        def checked():
+            prev = {n: e.clone() for n, e in gen.ema.items()}
+            lr = apply()
+            d = gen.ema_decay
+            for n, p in gen.module.named_parameters():
+                want = d * prev[n] + (1.0 - d) * p.detach()
+                self.ema_err = max(self.ema_err, float(
+                    (gen.ema[n] - want).abs().max()))
+            return lr
+        gen.apply_gradients = checked
+
+    def _timed(self, kind, fn):
+        import torch
+
+        def run(batch):
+            if self.batch is None or (batch["wav"].shape[1]
+                                      > self.batch["wav"].shape[1]):
+                self.batch = batch
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            m = fn(batch)
+            torch.cuda.synchronize()
+            rec = {k: float(v) for k, v in m.items()}
+            rec["ms"] = (time.perf_counter() - t1) * 1e3
+            (self.disc if kind == "disc_step" else self.gen).append(rec)
+            return m
+        return run
+
+    def _watched(self, name, st, step):
+        import torch
+
+        def run():
+            params = st.tx.params
+            if st.step == 0:
+                self.start[name] = [p.detach().clone() for p in params]
+                self.nonzero[name] = [False] * len(params)
+            if st.step < 2:
+                self.nonzero[name] = [
+                    a or (p.grad is not None and bool(p.grad.ne(0).any()))
+                    for a, p in zip(self.nonzero[name], params)]
+            lr = step()
+            if st.step == 1:
+                still = [a for a, p, nz in zip(self.start[name], params,
+                                               self.nonzero[name])
+                         if nz and torch.equal(a, p.detach())]
+                self.moved[name] = dict(params=len(params),
+                                        nonzero_grad=sum(self.nonzero[name]),
+                                        not_moved=len(still))
+            return lr
+        return run
+
+    def check(self):
+        """The phase's vocoder checks; returns its fields."""
+        import numpy as np
+        import torch
+        if not self.disc or not self.gen:
+            fail("the vocoder never trained")
+        bad = [r for r in self.disc + self.gen
+               if not all(np.isfinite(v) for v in r.values())]
+        if bad:
+            fail(f"non-finite vocoder metrics: {bad}")
+        if not self.disc[0]["r1"] > 0 or len(self.disc) < 2 or \
+                self.disc[1]["r1"] != 0:
+            fail(f"R1 should be non-zero on the first discriminator step "
+                 f"only: {[r['r1'] for r in self.disc]}")
+        # the GST's gradient reaches it through the generator's FiLM
+        # projections, which start at zero: none at its first two updates
+        parts = ("gen", "gst", "mpd", "msd", "mbd")
+        if set(self.moved) != set(parts) or any(
+                v["not_moved"] or (n != "gst" and not v["nonzero_grad"])
+                for n, v in self.moved.items()):
+            fail(f"after update 2 a part's parameters with a gradient did "
+                 f"not move: {self.moved}")
+        if any(not torch.equal(v, self.fb0[k])
+               for k, v in self.voc.stft.state_dict().items()):
+            fail("the STFT loss's filterbank moved")
+        if self.ema_err > 1e-6:
+            fail(f"the generator's EMA is off d*e + (1-d)*p by "
+                 f"{self.ema_err}")
+        return dict(disc_steps=self.disc, gen_steps=self.gen,
+                    moved_after_update_2=self.moved, ema_max_abs_err=self.ema_err,
+                    updates={n: st.step for n, st in self.voc.states.items()},
+                    filterbank_unchanged=True)
 
 
 def run_trainer(cfg, seed: int, workdir: Path):
+    """The phase's run: returns its fields and the trainer."""
     import numpy as np
     import torch
     from ttsx_torch import ops
@@ -1351,6 +1579,8 @@ def run_trainer(cfg, seed: int, workdir: Path):
             yield b
 
     trainer = UnifiedTrainer(cfg, counted(), val, device="cuda")
+    if list(trainer.blocks) != ["acoustic", "refiner", "vocoder"]:
+        fail(f"the trainer's default blocks are {list(trainer.blocks)}")
     spans = {}
 
     def timed(name, fn):
@@ -1364,10 +1594,12 @@ def run_trainer(cfg, seed: int, workdir: Path):
             return out
         return run
 
-    for name, blk in trainer.blocks.items():
+    for name in ("acoustic", "refiner"):
+        blk = trainer.blocks[name]
         step_fn = "train_step_accum" if name == "acoustic" else "train_step"
         setattr(blk, step_fn, timed(name, getattr(blk, step_fn)))
         blk.state.tx.step = timed(f"{name}_optimizer", blk.state.tx.step)
+    gan = GanWatch(trainer.blocks["vocoder"])
     ac = trainer.blocks["acoustic"].model
     rf = trainer.blocks["refiner"].model
     snap = lambda m: [p.detach().clone() for p in m.parameters()]
@@ -1407,24 +1639,164 @@ def run_trainer(cfg, seed: int, workdir: Path):
             or abs(st.l1_weight - float(np.clip(1 - vm["val_l1"], 0.1, 1.0)))
             > 1e-9):
         fail(f"noise scale / L1 weight do not follow val L1: {vars(st)}")
+    if sum(1 for m in steps if "vocoder/g_loss" in m) != TRAIN_STEPS:
+        fail("the vocoder did not train on every engine step")
+    vocoder = gan.check()
     xb = {k: v[:2] for k, v in val[0].items()}
     xdev = cross_device_losses(cfg, xb, seed)
     bad = {k: v for k, v in xdev.items() if not v["rel_err"] <= XDEV_RTOL}
     return dict(
-        engine_steps=TRAIN_STEPS,
+        engine_steps=TRAIN_STEPS, blocks=list(trainer.blocks),
         batch=cfg.train.batch_size, grad_accum=cfg.train.grad_accum_steps,
         collated_batches=n_batches, mel_shapes=shapes,
         launches=launches, losses_last=losses,
         acoustic_loss=[m["acoustic/loss"] for m in steps],
         refiner_loss=[m["refiner/loss"] for m in steps if "refiner/loss" in m],
         refiner_updates=trainer.blocks["refiner"].state.step,
+        vocoder_d_loss=[m["vocoder/d_loss"] for m in steps],
+        vocoder_g_loss=[m["vocoder/g_loss"] for m in steps],
+        vocoder_d_steps=[m["vocoder/d_steps"] for m in steps],
+        vocoder=vocoder, vocoder_batch=list(gan.batch["wav"].shape),
+        oom_count=st.oom_count,
         val=vm, noise_scale=st.noise_scale, l1_weight=st.l1_weight,
         step_ms=times, step_ms_median_after_first=float(np.median(times[1:])),
         block_ms=spans,
         collate_ms=[c * 1e3 for c in collated],
         collate_ms_mean=float(np.mean(collated)) * 1e3,
         peak_mem_gb=peak, cross_device=xdev, cross_device_rtol=XDEV_RTOL,
-        cross_device_ok=not bad)
+        cross_device_ok=not bad), trainer, gan.batch
+
+
+def vocoder_export_phase(trainer, workdir: Path, batch, seed: int):
+    """Phase 5b (see the module docstring). Returns its fields."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from ttsx_torch import ops
+    from ttsx_torch.core.config import zoo_cfg
+    from ttsx_torch.models.pipeline import TTSPipeline
+    from ttsx_torch.ops import film_resblock_stack
+    from ttsx_torch.serve import SynthesisServer
+    from ttsx_torch.train.blocks import VocoderBlock
+    from ttsx_torch.train.slim_export import (load_vocoder_slim,
+                                              save_vocoder_slim)
+    from ttsx_torch.weights import load_flax, load_slim_npz
+    from ttsx_torch.zoo import DEFAULT_ZOO
+    voc = trainer.blocks["vocoder"]
+    path = str(workdir / "vocoder.npz")
+    save_vocoder_slim(path, voc, meta={"steps": trainer.state.global_step})
+    cfg = trainer.cfg
+    kcfg = dataclasses.replace(cfg, vocoder=dataclasses.replace(
+        cfg.vocoder, use_pallas_upsample=True, use_pallas_resblock_stack=True))
+    pipe = TTSPipeline(kcfg, acoustic=trainer.blocks["acoustic"].model,
+                       refiner=trainer.blocks["refiner"].model)
+    trees = load_slim_npz(path)
+    load_flax(pipe.generator, trees["gen_ema"])
+    load_flax(pipe.gst, trees["gst"])
+    pipe = pipe.to("cuda")
+    served_params = pipe.generator.state_dict()
+    ema_err = max(float((served_params[n] - e).abs().max())
+                  for n, e in voc.states["gen"].ema.items())
+    # K1 and K2 are forward-only: a call that needs a gradient raises
+    ops.reset_launches()
+    x = torch.randn(1, 16, kcfg.vocoder.channels, device="cuda")
+    refused = []
+    for what, call in (
+            ("generator", lambda: pipe.generator(
+                x, torch.zeros(1, 16, kcfg.acoustic.cond_dim, device="cuda"),
+                torch.zeros(1, kcfg.vocoder.style_dim, device="cuda"),
+                torch.zeros(1, kcfg.acoustic.emotion_dim, device="cuda"))),
+            ("resblock_stack", lambda: film_resblock_stack(
+                torch.randn(4, 64, 8, device="cuda", requires_grad=True),
+                torch.randn(1, 16, 48, device="cuda"),
+                torch.randn(3, 3, 8, 16, device="cuda"),
+                torch.zeros(3, 16, device="cuda"),
+                torch.randn(3, 3, 8, 8, device="cuda"),
+                torch.zeros(3, 8, device="cuda"), (1, 3, 5)))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "forward-only" not in str(e):
+                raise
+            refused.append(what)
+    if refused != ["generator", "resblock_stack"] or any(
+            ops.launch_counts().values()):
+        fail(f"K1 / K2 under a gradient: refused {refused}, launches "
+             f"{ops.launch_counts()}")
+    reqs = requests(kcfg, seed)[:1]
+    srv = SynthesisServer(pipe, device="cuda", max_batch=1, frames=FRAMES,
+                          bf16=False)
+    wavs, launches, secs = served(srv, reqs, "vocoder_export")
+    if launches != SERVE_LAUNCHES:
+        fail(f"launches serving the exported vocoder {launches}, want "
+             f"{SERVE_LAUNCHES}")
+    plain = SynthesisServer(pipe.with_vocoder_kernels(False), device="cuda",
+                            max_batch=1, frames=FRAMES, bf16=False)
+    ops.reset_launches()
+    wavs_plain = plain.serve_batch(reqs)
+    if any(ops.launch_counts().values()):
+        fail("the plain path launched a kernel")
+    wav_err = max(float(np.abs(a - b).max()) for a, b in zip(wavs, wavs_plain))
+    if wav_err > WAV_TOL:
+        fail(f"the exported vocoder through K1 and K2 differs from plain by "
+             f"{wav_err}")
+    # the zoo's export warm-starts a block, which takes one GAN step
+    zb = VocoderBlock(zoo_cfg(False), "cuda", seed)
+    meta = load_vocoder_slim(str(DEFAULT_ZOO / "vocoder.npz"), zb)
+    few = xdev_window({k: v[:4] for k, v in batch.items()}, XDEV_VOC_FRAMES,
+                      zb.hop)
+    zoo_step = {k: float(v) for k, v in {**zb.disc_step(few),
+                                         **zb.gen_step(few)}.items()}
+    if not all(np.isfinite(v) for v in zoo_step.values()):
+        fail(f"the zoo-warm-started GAN step is not finite: {zoo_step}")
+    return dict(export_mb=Path(path).stat().st_size / 1e6,
+                export_keys=len(np.load(path).files),
+                served_vs_ema_max_abs_diff=ema_err, refused_gradient=refused,
+                served_frames=REQUEST_FRAMES[0], launches=launches,
+                serve_s=secs, peak=float(np.abs(wavs[0]).max()),
+                wav_max_abs_err_vs_plain=wav_err, wav_tolerance=WAV_TOL,
+                zoo_warm_start_steps=int(meta["steps"]),
+                zoo_warm_start_batch=list(few["wav"].shape),
+                zoo_warm_start_step=zoo_step)
+
+
+def time_gan(voc, batch):
+    """ms of the vocoder's disc_step with R1 and without and of its
+    gen_step, plain and with ``remat`` (each FiLM residual block
+    recomputed in the backward pass), on ``batch`` (host clock around
+    each, the card synchronized; ``GAN_REPEATS`` each), each with its
+    peak memory, and the work counted by ``gan_work`` for the batch."""
+    import numpy as np
+    import torch
+    mpd, r1_every = voc.states["mpd"], voc.vc.r1_interval
+    tower = voc.gen.band_tower.tower
+    plain = tower.cfg
+    out = {}
+    for kind, fn, r1, remat in (
+            ("disc_step_r1", voc.disc_step, True, False),
+            ("disc_step", voc.disc_step, False, False),
+            ("gen_step", voc.gen_step, None, False),
+            ("gen_step_remat", voc.gen_step, None, True)):
+        tower.cfg = dataclasses.replace(plain, remat=remat)
+        ms = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(GAN_REPEATS):
+            if r1 is not None:
+                mpd.step = r1_every * (mpd.step // r1_every + 1) - (not r1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            m = fn(batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            if r1 is not None and (float(m["r1"]) > 0) != r1:
+                fail(f"{kind}: r1 {float(m['r1'])}")
+        out[kind] = dict(ms=ms, ms_median=float(np.median(ms)),
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    tower.cfg = plain
+    out["batch"] = list(batch["wav"].shape)
+    out["work_tflop"] = gan_work(voc.vc, *batch["wav"].shape[:2])
+    return out
 
 
 def main(argv=None) -> int:
@@ -1459,6 +1831,7 @@ def main(argv=None) -> int:
     emit("env", t0, python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=kind,
          device_count=torch.cuda.device_count(), nvidia_smi=smi,
+         gpu_state=gpu_state(),
          tf32_conv=torch.backends.cudnn.allow_tf32,
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
 
@@ -1583,20 +1956,31 @@ def main(argv=None) -> int:
     t0 = time.time()
     emit("stream", t0, **stream_phase(srv.pipe, args.seed))
 
-    # -- 5. the acoustic + refiner trainer on a wav tree, K3 in the collator
+    # -- 5. the trainer's three blocks on a wav tree, K3 in the collator
     t0 = time.time()
+    state_before = gpu_state()
     with tempfile.TemporaryDirectory() as tmp:
-        train, k3_audio, k3_wavs = train_phase(args.seed, Path(tmp))
-    train_launches = train["launches"]
-    emit("train", t0, **train)
-    if not train["cross_device_ok"]:
-        fail(f"first-step losses on the card and the CPU differ by more "
-             f"than {XDEV_RTOL}: {train['cross_device']}")
+        train, k3_audio, k3_wavs, trainer, gan_batch = train_phase(
+            args.seed, Path(tmp))
+        train_launches = train["launches"]
+        emit("train", t0, gpu_state_before=state_before,
+             gpu_state_after=gpu_state(), **train)
+        if not train["cross_device_ok"]:
+            fail(f"first-step losses on the card and the CPU differ by more "
+                 f"than {XDEV_RTOL}: {train['cross_device']}")
+
+        # -- 5b. the trained vocoder's slim export served through K1 and K2
+        t0 = time.time()
+        emit("vocoder_export", t0, **vocoder_export_phase(
+            trainer, Path(tmp), gan_batch, args.seed))
+    voc = trainer.blocks["vocoder"]
+    del trainer
 
     # -- 6. timing: K3 at each batch shape the trainer collated (the
     # largest first) and at the clip, K1 and K2 at the stage shapes of
     # batch 1 and of the serving bucket
     t0 = time.time()
+    state_before = gpu_state()
     mel_rows = [time_mel(k3_audio, w) for w in k3_wavs]
     mel_rows.append(time_mel(k3_audio, torch.as_tensor(mel_clip,
                                                        device="cuda")))
@@ -1640,12 +2024,16 @@ def main(argv=None) -> int:
                for b in (1, MAX_BATCH)}
     sde_times = time_sde(pipe_p, pipe_f, *sde_one)
     timing_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gan_times = time_gan(voc, gan_batch)
+    del voc
     bf16_times = time_bf16(srv.pipe, reqs, srv.scale_stats)
     emit("timing", t0, kernels_by_batch=rows, mel_frontend=mel_rows,
          s4_scan_by_batch=k4_rows,
          resblock_by_batch={b: v[0] for b, v in k5_rows.items()},
          resblock_stage_vs_k2_by_batch={b: v[1] for b, v in k5_rows.items()},
          sde_batch1=sde_times, serve_bf16_vs_f32_batch1=bf16_times,
+         vocoder_gan=gan_times, trainer_peak_mem_gb=train["peak_mem_gb"],
+         gpu_state_before=state_before, gpu_state_after=gpu_state(),
          collate_ms_median_at_k3_shape=k3_collate_ms,
          k3_share_of_collate=(mel_row["ms"] / k3_collate_ms if same
                               else None),

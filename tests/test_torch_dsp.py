@@ -51,6 +51,21 @@ def test_stft_and_mel_spectrogram_match_reference(normalize):
           jstft.mel_spectrogram(jnp.asarray(wav), jcfg), tol, tol)
 
 
+def test_stft_keeps_a_float64_wav_and_the_mel_computes_in_float32():
+    """The STFT loss's magnitude stays in float64 for a float64 wav; the
+    log-mel casts any wav to float32 first, as it always did."""
+    from ttsx_torch.dsp import stft
+    cfg, _ = _cfgs()
+    wav = _noise(1, 2, 3000)
+    mag64 = stft.stft_magnitude(t(wav).double(), 256, 64)
+    assert mag64.dtype == torch.float64
+    close(mag64.float(), stft.stft_magnitude(t(wav), 256, 64).numpy(),
+          1e-5, 1e-5)
+    mel = stft.mel_spectrogram(t(wav).double(), cfg)
+    assert mel.dtype == torch.float32
+    assert torch.equal(mel, stft.mel_spectrogram(t(wav), cfg))
+
+
 def test_k3_plain_matches_pallas_on_noise():
     """Tolerance of tests/test_ops.py: 2e-3 abs / 1e-3 rel on the log-mel."""
     from ttsx.ops.mel_kernel import mel_frontend_pallas

@@ -7,8 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_train_helpers import (JaxDraws, batch_of, close_metrics, jax_cfg,
-                                 seed_block_init, tiny_cfg)
+from torch_train_helpers import (JaxDraws, batch_of, close_metrics, gan_cfg,
+                                 jax_cfg, seed_block_init, tiny_cfg)
 
 from ttsx_torch.core import config as tc
 from ttsx_torch.nn.draws import ReplayDraws
@@ -28,7 +28,8 @@ def test_unified_trainer_parity_without_accumulation(monkeypatch):
     val = [batch_of(cfg, seed=9)]
     jt = JTrainer(jax_cfg(cfg), iter(batches), val_iter=val,
                   blocks=("acoustic", "refiner"))
-    pt = UnifiedTrainer(cfg, iter(batches), val, device="cpu")
+    pt = UnifiedTrainer(cfg, iter(batches), val, device="cpu",
+                        blocks=("acoustic", "refiner"))
     for i, name in enumerate(("acoustic", "refiner")):
         load_flax(pt.blocks[name].model,
                   seed_block_init(name, jt.blocks[name], batches[0], i))
@@ -64,7 +65,8 @@ def test_engine_trains_on_unequal_buckets():
     cfg = tiny_cfg(accum=2)
     batches = [batch_of(cfg, seed=0, frames=8), batch_of(cfg, seed=1,
                                                          frames=16)]
-    pt = UnifiedTrainer(cfg, iter(batches[1:]), device="cpu")
+    pt = UnifiedTrainer(cfg, iter(batches[1:]), device="cpu",
+                        blocks=("acoustic", "refiner"))
     m = pt.train_step(batches[0])
     assert np.isfinite(m["acoustic/loss"]) and np.isfinite(m["refiner/loss"])
     assert pt.blocks["acoustic"].state.step == 1
@@ -82,7 +84,8 @@ def test_engine_pairs_refiner_with_micro_batch_zero():
     from ttsx_torch.train.engine import UnifiedTrainer
     cfg = tiny_cfg(accum=2)
     batches = [batch_of(cfg, seed=s) for s in (0, 1)]
-    pt = UnifiedTrainer(cfg, iter(batches[1:]), device="cpu")
+    pt = UnifiedTrainer(cfg, iter(batches[1:]), device="cpu",
+                        blocks=("acoustic", "refiner"))
     seen = {}
     ac, rf = pt.blocks["acoustic"], pt.blocks["refiner"]
     accum, refine = ac.train_step_accum, rf.train_step
@@ -112,10 +115,14 @@ def _cfg_file(tmp_path, cfg):
 
 
 def test_main_train_synthetic_on_cpu(tmp_path, capsys):
+    """Acoustic + refiner on synthetic batches (3 steps, a validation);
+    then acoustic + vocoder for 2 steps at the tiny vocoder, which trains
+    the GAN each step."""
     from ttsx_torch.cli.main import main_train
     out = tmp_path / "out"
     rc = main_train(["--synthetic", "--device", "cpu", "--max-steps", "3",
                      "--config", _cfg_file(tmp_path, tiny_cfg(accum=2)),
+                     "--blocks", "acoustic,refiner",
                      "--output-dir", str(out)])
     assert rc == 0
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -126,14 +133,23 @@ def test_main_train_synthetic_on_cpu(tmp_path, capsys):
     assert [r["step"] for r in log] == [1, 2, 3, 3]
     assert "val" in log[-1] and "refiner/loss" in log[0]
     assert json.loads((out / "step_times.json").read_text())["steps"] == 3
-    with pytest.raises(NotImplementedError, match="vocoder"):
-        main_train(["--synthetic", "--device", "cpu", "--blocks",
-                    "acoustic,vocoder"])
+    voc = tmp_path / "voc"
+    rc = main_train(["--synthetic", "--device", "cpu", "--max-steps", "2",
+                     "--config", _cfg_file(tmp_path, gan_cfg()),
+                     "--blocks", "acoustic,vocoder", "--output-dir", str(voc)])
+    assert rc == 0
+    log = [json.loads(l) for l in (voc / "train_log.jsonl").read_text()
+           .splitlines()]
+    steps = [r for r in log if "vocoder/g_loss" in r]
+    assert len(steps) == 2 and all(np.isfinite(r["vocoder/d_loss"])
+                                   for r in steps)
 
 
 def test_main_train_on_a_wav_tree_on_cpu(tmp_path, capsys):
-    """The slice's path at a tiny size: wav tree -> dataset -> collator
-    (K3's plain version on the CPU) -> adapter -> trainer -> validation."""
+    """The trainer's path at a tiny size: wav tree -> dataset -> collator
+    (K3's plain version on the CPU) -> adapter -> the three blocks (the
+    vocoder on the collated wav, cut to whole generator hops) ->
+    validation."""
     from ttsx.data.dataset import write_wav
     from ttsx_torch.cli.main import main_train
     rng = np.random.default_rng(0)
@@ -147,10 +163,13 @@ def test_main_train_on_a_wav_tree_on_cpu(tmp_path, capsys):
     rc = main_train(["--data-root", str(tmp_path / "wavs"), "--device",
                      "cpu", "--max-steps", "2", "--output-dir",
                      str(tmp_path / "out"), "--config",
-                     _cfg_file(tmp_path, tiny_cfg(accum=2))])
+                     _cfg_file(tmp_path, gan_cfg(accum=2))])
     assert rc == 0
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert res["global_step"] == 2 and np.isfinite(res["val_l1"])
+    log = [json.loads(l) for l in (tmp_path / "out" / "train_log.jsonl")
+           .read_text().splitlines()]
+    assert all(np.isfinite(r["vocoder/g_loss"]) for r in log[:2])
 
 
 def test_fresh_init_is_flax_like_and_refiner_starts_as_identity():

@@ -1,8 +1,9 @@
 """Tests that need a CUDA card (``gpu`` marker): the CUDA kernels against
 their plain PyTorch versions (K1, K2 and K5 also on bf16 operands), the
-zoo served through K1 and K2 in f32 and in bf16, and K3,
-K4 and K5 refusing to fall back when their library is missing (K4 and K5,
-which are forward-only, also refuse a call that needs a gradient).
+zoo served through K1 and K2 in f32 and in bf16, and K1 to K5 refusing
+to fall back when their library is missing (K1, K2, K4 and K5, which
+are forward-only, also refuse a call that needs a gradient, and a
+kernel-flagged generator under a gradient raises).
 
 Each test skips without a card. This file imports neither JAX nor the
 JAX package, so on a machine without JAX it runs on its own:
@@ -511,3 +512,61 @@ def test_k4_k5_refuse_gradients_and_do_not_fall_back(cuda, monkeypatch):
         with pytest.raises(build.KernelCompileError):
             film_resblock(*blk, 1)
     assert (s4_scan.launches, film_resblock.launches) == before
+
+
+def test_k1_k2_refuse_gradients_and_do_not_fall_back(cuda, monkeypatch):
+    """K1 and K2 raise on a call that needs a gradient (grad mode on and an
+    operand that requires one), and so does a kernel-flagged generator;
+    under ``torch.no_grad()`` they launch as before; with their library
+    missing they raise and the plain versions never run."""
+    import dataclasses
+    import importlib
+    from ttsx_torch.core.config import VocoderConfig
+    from ttsx_torch.models.vocoder import Generator
+    up_mod = importlib.import_module("ttsx_torch.ops.upsample")
+    st_mod = importlib.import_module("ttsx_torch.ops.resblock_stack")
+    k1 = [_randn(cuda, 2, 16, 8), _randn(cuda, 4, 8, 4), _randn(cuda, 4)]
+    k2 = [_randn(cuda, 4, 32, 8), _randn(cuda, 1, 16, 48),
+          _randn(cuda, 3, 3, 8, 16, scale=0.2), _randn(cuda, 3, 16),
+          _randn(cuda, 3, 3, 8, 8, scale=0.2), _randn(cuda, 3, 8)]
+    before = (convt_upsample.launches, film_resblock_stack.launches)
+    for i in range(3):
+        with pytest.raises(RuntimeError, match="forward-only"):
+            convt_upsample(*[t.requires_grad_(j == i) for j, t in
+                             enumerate(k1)], 2)
+    for i in range(6):
+        with pytest.raises(RuntimeError, match="forward-only"):
+            film_resblock_stack(*[t.requires_grad_(j == i) for j, t in
+                                  enumerate(k2)], (1, 3, 5))
+    vc = dataclasses.replace(VocoderConfig(hidden_dim=64),
+                             use_pallas_upsample=True,
+                             use_pallas_resblock_stack=True)
+    gen = Generator(vc).cuda()
+    args = (_randn(cuda, 1, 8, 80), _randn(cuda, 1, 8, 18),
+            _randn(cuda, 1, 128), torch.full((1, 6), 1 / 6).cuda())
+    with pytest.raises(RuntimeError, match="forward-only"):
+        gen(*args)
+    assert (convt_upsample.launches, film_resblock_stack.launches) == before
+    with torch.no_grad():
+        _close(convt_upsample(*k1, 2), convt_upsample_plain(*k1, 2),
+               **K1_TOL)
+        _close(film_resblock_stack(*k2, (1, 3, 5)),
+               film_resblock_stack_plain(*k2, (1, 3, 5)), **K2_TOL)
+        assert gen(*args).shape == (1, 8 * 256, 1)
+    assert (convt_upsample.launches, film_resblock_stack.launches) == (
+        before[0] + 5, before[1] + 5)
+
+    def no_library(name):
+        raise build.KernelCompileError(f"no {name} library")
+
+    def forbidden(*a_, **k_):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(build, "load", no_library)
+    monkeypatch.setattr(up_mod, "convt_upsample_plain", forbidden)
+    monkeypatch.setattr(st_mod, "film_resblock_stack_plain", forbidden)
+    with torch.no_grad():
+        with pytest.raises(build.KernelCompileError):
+            convt_upsample(*k1, 2)
+        with pytest.raises(build.KernelCompileError):
+            film_resblock_stack(*k2, (1, 3, 5))

@@ -49,6 +49,20 @@ def tiny_cfg(accum: int = 1, dropout: float = 0.1) -> tc.TTSXConfig:
                              grad_accum_steps=accum, batch_size=4))
 
 
+# tests/test_train.py's tiny vocoder: fewer discriminators and STFT sizes
+TINY_VOCODER = tc.VocoderConfig(hidden_dim=16, cond_dim=8, style_dim=16,
+                                disc_ch_growth=2, disc_periods=(2, 3),
+                                disc_kernel_sizes=(15,), stft_sizes=(512,))
+
+
+def gan_cfg(accum: int = 1, **vocoder) -> tc.TTSXConfig:
+    """``tiny_cfg(accum)`` with ``TINY_VOCODER`` (fields overridden by
+    ``vocoder``)."""
+    import dataclasses
+    return dataclasses.replace(tiny_cfg(accum), vocoder=dataclasses.replace(
+        TINY_VOCODER, **vocoder))
+
+
 def jax_cfg(cfg):
     return jc.from_dict(jc.TTSXConfig, tc.to_dict(cfg))
 

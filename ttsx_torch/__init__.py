@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of ttsx's text->waveform synthesis chain and its
-acoustic + refiner trainer.
+trainer (acoustic, refiner and the vocoder GAN).
 
 Layout mirrors ``ttsx``: ``core`` (configs), ``nn`` (layers), ``models``
-(acoustic, refiner, vocoder, pipeline), ``ops`` (hand-written CUDA
+(acoustic, refiner, vocoder, discriminators, pipeline), ``ops`` (hand-written CUDA
 kernels with their plain PyTorch versions), ``dsp`` and ``data`` (the
 trainer's data path), ``train`` (blocks and engine), ``cli``,
 ``weights`` (flax tree / slim npz -> state dicts), ``zoo``, ``serve``

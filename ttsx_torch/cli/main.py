@@ -1,10 +1,10 @@
 """The port's command lines (``ttsx/cli/main.py``): ``main_train``, the
-acoustic + refiner trainer on a wav tree or on synthetic batches, and
-``main_synth``, text -> waveform.
+acoustic, refiner and vocoder GAN trainer on a wav tree or on synthetic
+batches, and ``main_synth``, text -> waveform.
 
     python -m ttsx_torch.cli.main --data-root DIR [--max-steps N]
         [--config cfg.json] [--output-dir out] [--device cuda|cpu]
-        [--blocks acoustic,refiner]
+        [--blocks acoustic,refiner,vocoder]
 
 With ``--data-root`` the path is: ``TTSDataset`` -> ``TTSCollator`` (mel
 through K3 and f0 / energy on ``--device``) -> ``collator_to_trainer_batch``
@@ -14,7 +14,9 @@ validation set is one batch of the first items, collated without
 augmentation. ``--synthetic`` (or no data root)
 trains on synthetic batches of 2 x 16 frames. The run ends with one
 validation pass; ``train_log.jsonl`` and ``step_times.json`` go to
-``--output-dir``. Checkpoints and the vocoder block are not ported yet.
+``--output-dir``. The vocoder trains on each step's collated wav (cut to
+whole generator hops: ``train.blocks.match_lengths``). Checkpoints are
+not ported yet.
 
     python -m ttsx_torch.cli.synth [--zoo [DIR]] [--sde] [--text T]
         [--frames N] [--out synth.wav] [--seed S] [--device cuda|cpu]
@@ -78,7 +80,7 @@ def main_train(argv=None) -> int:
     p.add_argument("--max-steps", type=int)
     p.add_argument("--output-dir", default="./output")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--blocks", default="acoustic,refiner")
+    p.add_argument("--blocks", default="acoustic,refiner,vocoder")
     args = p.parse_args(argv)
 
     from ttsx_torch.core.config import TTSXConfig, from_dict
@@ -86,8 +88,6 @@ def main_train(argv=None) -> int:
     from ttsx_torch.train.callbacks import JSONLLogger, StepTimeArtifact
     from ttsx_torch.train.engine import UnifiedTrainer
     blocks = [b.strip() for b in args.blocks.split(",") if b.strip()]
-    if "vocoder" in blocks:
-        raise NotImplementedError("the vocoder GAN block is not ported yet")
     cfg = (from_dict(TTSXConfig, json.loads(Path(args.config).read_text()))
            if args.config else TTSXConfig())
     device = resolve_device(args.device)

@@ -1,7 +1,7 @@
 """Configuration dataclasses of the synthesis chain and its trainer.
 
 A stdlib-only copy of the part of ``ttsx.core.config`` that synthesis and
-the acoustic + refiner trainer read: ``AudioConfig``, ``S4Config``,
+the trainer read: ``AudioConfig``, ``S4Config``,
 ``AcousticConfig``, ``RefinerConfig``, ``VocoderConfig``, ``NovelConfig``,
 ``TrainConfig`` and a ``TTSXConfig`` root holding them. Field
 names and defaults are the reference's, so a dict written by
@@ -150,8 +150,8 @@ class VocoderConfig:
 class NovelConfig:
     """The trainer's toggles (``sde_noise_annealing``: the refiner's noise
     scale and L1 weight follow the validation L1; ``ema_swap_validate``:
-    validate on EMA weights where a block keeps them; ``dynamic_gan``
-    belongs to the vocoder block, not ported yet)."""
+    validate on EMA weights where a block keeps them; ``dynamic_gan``: the
+    vocoder's discriminator steps follow the ratio of its loss EMAs)."""
     sde_noise_annealing: bool = True
     dynamic_gan: bool = True
     ema_swap_validate: bool = True

@@ -65,12 +65,15 @@ def frame_signal(wav: torch.Tensor, n_fft: int, hop: int,
 def stft_magnitude(wav: torch.Tensor, n_fft: int, hop: int,
                    win_length: int | None = None,
                    center: bool = True) -> torch.Tensor:
-    """wav [B, N] -> |STFT| [B, T, n_fft//2+1]."""
+    """wav [B, N] -> |STFT| [B, T, n_fft//2+1], in float32 (float64 for
+    a float64 wav)."""
     win_length = win_length or n_fft
-    frames = frame_signal(wav.float(), n_fft, hop, center)
+    frames = frame_signal(wav.to(torch.promote_types(wav.dtype,
+                                                     torch.float32)),
+                          n_fft, hop, center)
     win = torch.as_tensor(
         padded_window(AudioConfig(n_fft=n_fft, win_length=win_length)),
-        dtype=torch.float32, device=wav.device)
+        dtype=frames.dtype, device=wav.device)
     return torch.fft.rfft(frames * win, dim=-1).abs()
 
 
@@ -83,8 +86,10 @@ def normalize_mel(mel: torch.Tensor) -> torch.Tensor:
 
 def mel_spectrogram(wav: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     """wav [B, N] -> log-mel [B, T, n_mels]: |STFT| @ filterbank, then
-    ``log(mel + log_eps)``, then the per-bin normalisation if asked."""
-    mag = stft_magnitude(wav, cfg.n_fft, cfg.hop_length, cfg.win_length)
+    ``log(mel + log_eps)``, then the per-bin normalisation if asked; in
+    float32 whatever the wav's dtype."""
+    mag = stft_magnitude(wav.float(), cfg.n_fft, cfg.hop_length,
+                         cfg.win_length)
     fb = torch.as_tensor(mel_filterbank(cfg.sample_rate, cfg.n_fft,
                                         cfg.n_mels, cfg.f_min, cfg.f_max),
                          device=wav.device)

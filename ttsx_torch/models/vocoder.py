@@ -1,4 +1,4 @@
-"""Multi-band GAN vocoder generator at inference (``ttsx/models/vocoder.py``).
+"""Multi-band GAN vocoder generator (``ttsx/models/vocoder.py``).
 
 mel [B, T, 80] + prosody [B, T, 18] + style [B, S] + emotion [B, 6]
 (+ scale [B, 160] with ``scale_cond``) -> waveform [B, T*256, 1].
@@ -16,6 +16,11 @@ Per stage: ConvTranspose upsample, then 3 FiLM residual blocks (dilations
 in ``ttsx_torch.ops``); with the flags off everything is plain PyTorch.
 A ``FiLMResidualBlock(use_pallas=True)`` runs as kernel K5 (no config
 sets it, as in the reference). The parameters are the same either way.
+The kernels are forward-only: on the card they raise when a call needs a
+gradient, so a generator under training runs with both flags off (the
+vocoder train block sees to it). With ``cfg.remat`` and a gradient,
+each FiLM residual block is recomputed in the backward pass
+(``torch.utils.checkpoint``, as ``nn.remat`` in the reference).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ttsx_torch.core.config import VocoderConfig
 from ttsx_torch.nn.attention import SelfAttention1d
@@ -44,7 +50,7 @@ class FiLMResidualBlock(nn.Module):
                  use_pallas: bool = False):
         super().__init__()
         self.dilation, self.use_pallas = dilation, use_pallas
-        self.Dense_0 = Dense(cond_dim, 2 * channels)
+        self.Dense_0 = Dense(cond_dim, 2 * channels, zero_init=True)
         self.Conv1d_0 = Conv1d(channels, 2 * channels, 3, dilation=dilation)
         self.Conv1d_1 = Conv1d(channels, channels, 3)
 
@@ -94,6 +100,9 @@ class BandTower(nn.Module):
                       for j in range(len(cfg.res_dilations))]
             if cfg.use_pallas_resblock_stack:
                 x = self._fused_stage(x.contiguous(), cond, blocks)
+            elif cfg.remat and torch.is_grad_enabled():
+                for blk in blocks:
+                    x = checkpoint(blk, x, cond, use_reentrant=False)
             else:
                 for blk in blocks:
                     x = blk(x, cond)
@@ -129,7 +138,8 @@ class Generator(nn.Module):
         self.style_proj = Dense(cfg.style_dim, cfg.cond_dim)
         self.emotion_proj = Dense(emotion_dim, cfg.cond_dim)
         if cfg.scale_cond:
-            self.scale_proj = Dense(2 * cfg.channels, cfg.cond_dim)
+            self.scale_proj = Dense(2 * cfg.channels, cfg.cond_dim,
+                                    zero_init=True)
         self.cond_norm = LayerNorm(cfg.cond_dim)
         self.band_tower = _Tower(cfg, cfg.channels // cfg.num_bands)
         ch_out = cfg.hidden_dim >> len(cfg.upsample_factors)

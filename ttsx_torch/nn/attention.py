@@ -21,17 +21,35 @@ from ttsx_torch.nn.layers import Dense
 
 
 class _HeadsIn(Dense):
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__(dim, dim)
+        self.num_heads = num_heads
+
     def from_flax_leaves(self, leaves):
         k = np.asarray(leaves["kernel"])              # [D, H, Dh]
         return {"weight": k.reshape(k.shape[0], -1).T,
                 "bias": np.asarray(leaves["bias"]).reshape(-1)}
 
+    def to_flax_leaves(self, state):
+        w, H = state["weight"], self.num_heads
+        return {"kernel": w.T.reshape(w.shape[1], H, -1),
+                "bias": state["bias"].reshape(H, -1)}
+
 
 class _HeadsOut(Dense):
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__(dim, dim)
+        self.num_heads = num_heads
+
     def from_flax_leaves(self, leaves):
         k = np.asarray(leaves["kernel"])              # [H, Dh, D]
         return {"weight": k.reshape(-1, k.shape[-1]).T,
                 "bias": leaves["bias"]}
+
+    def to_flax_leaves(self, state):
+        w = state["weight"]
+        return {"kernel": w.T.reshape(self.num_heads, -1, w.shape[0]),
+                "bias": state["bias"]}
 
 
 class MHSA(nn.Module):
@@ -42,10 +60,10 @@ class MHSA(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
-        self.query = _HeadsIn(dim, dim)
-        self.key = _HeadsIn(dim, dim)
-        self.value = _HeadsIn(dim, dim)
-        self.out = _HeadsOut(dim, dim)
+        self.query = _HeadsIn(dim, num_heads)
+        self.key = _HeadsIn(dim, num_heads)
+        self.value = _HeadsIn(dim, num_heads)
+        self.out = _HeadsOut(dim, num_heads)
 
     def forward(self, q_in: torch.Tensor,
                 kv_in: torch.Tensor | None = None,

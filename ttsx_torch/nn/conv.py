@@ -12,6 +12,13 @@ tests/test_torch_nn.py). Its forward runs the tap-bank form of
 
 Both compute in the promoted dtype of the input and their parameters,
 as flax's ``nn.Conv`` and ``nn.ConvTranspose`` do.
+
+For the vocoder's discriminators: ``SNConv``, a 1-D or 2-D conv whose
+kernel is divided by its largest singular value (``spectral_normalize``:
+8 power iterations from a cold start on every call, as the reference's,
+never torch's warm-started ``spectral_norm``), SAME padding with any
+strides; and ``avg_pool1d``, flax's SAME average pool, which counts the
+padded zeros.
 """
 from __future__ import annotations
 
@@ -73,6 +80,12 @@ class Conv1d(nn.Module):
             out["bias"] = leaves["bias"]
         return out
 
+    def to_flax_leaves(self, state):
+        out = {"kernel": state["weight"].transpose(2, 1, 0)}
+        if "bias" in state:
+            out["bias"] = state["bias"]
+        return out
+
 
 class ConvTranspose1d(nn.Module):
     """Strided transposed conv with T_out = T * stride (k = 2*stride,
@@ -99,3 +112,87 @@ class ConvTranspose1d(nn.Module):
         k = np.asarray(leaves["kernel"])           # [k, Cin, Cout]
         return {"weight": k[::-1].transpose(1, 2, 0).copy(),
                 "bias": leaves["bias"]}
+
+    def to_flax_leaves(self, state):
+        return {"kernel": state["weight"].transpose(2, 0, 1)[::-1].copy(),
+                "bias": state["bias"]}
+
+
+def avg_pool1d(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """[B, T, C] average pool along T with SAME padding, the padded zeros
+    counted in every window (flax ``avg_pool``)."""
+    lo, hi = same_pads(x.shape[1], window, stride)
+    h = F.pad(x.transpose(1, 2), (lo, hi))
+    return F.avg_pool1d(h, window, stride).transpose(1, 2)
+
+
+def spectral_normalize(w: torch.Tensor, n_iter: int = 8,
+                       eps: float = 1e-8) -> torch.Tensor:
+    """A flax kernel [..., Cout] divided by the largest singular value of
+    its [prod(...), Cout] matrix, floored at ``eps``
+    (``ttsx/nn/conv.py::spectral_normalize``): ``n_iter`` power iterations
+    that start cold from ``u = 1/sqrt(rows)`` on every call. ``u`` and
+    ``v`` carry no gradient; the gradient flows through ``sigma = u . (W
+    v)``. (Not ``torch.nn.utils.spectral_norm``, which keeps a warm random
+    ``u``.)"""
+    mat = w.reshape(-1, w.shape[-1])
+    with torch.no_grad():
+        m = mat.detach()
+        u = torch.full((m.shape[0],), m.shape[0] ** -0.5, dtype=m.dtype,
+                       device=m.device)
+        for _ in range(n_iter):
+            v = m.T @ u
+            v = v / torch.clamp_min(torch.linalg.vector_norm(v), eps)
+            u = m @ v
+            u = u / torch.clamp_min(torch.linalg.vector_norm(u), eps)
+    return w / torch.clamp_min(u @ (mat @ v), eps)
+
+
+class SNConv(nn.Module):
+    """Spectral-normalized 1-D or 2-D conv (``ttsx/nn/conv.py::SNConv``),
+    SAME padding as XLA pads it, any strides. Works channels-first
+    ([B, C, T] or [B, C, H, W]), the layout torch's convs take; the
+    reference's channels-last maps are views of its outputs. Weight
+    [Cout, Cin, *kernel_size]; the norm is taken over the flax kernel's
+    [prod(kernel_size) * Cin, Cout] matrix."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size,
+                 strides=None, n_power_iter: int = 8):
+        super().__init__()
+        self.kernel_size = tuple(kernel_size)
+        self.strides = tuple(strides) if strides else (1,) * len(
+            self.kernel_size)
+        self.n_power_iter = n_power_iter
+        self.weight = nn.Parameter(
+            torch.empty(features, in_channels, *self.kernel_size))
+        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def _flax_order(self):
+        """The permutation of ``weight``'s axes into flax's (*k, Cin, Cout)."""
+        n = len(self.kernel_size)
+        return tuple(range(2, 2 + n)) + (1, 0)
+
+    def normalized_weight(self) -> torch.Tensor:
+        order = self._flax_order()
+        k = spectral_normalize(self.weight.permute(order), self.n_power_iter)
+        return k.permute([int(i) for i in np.argsort(order)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.normalized_weight()
+        pads = []
+        for t, k, s in zip(reversed(x.shape[2:]), reversed(self.kernel_size),
+                           reversed(self.strides)):
+            pads += same_pads(t, k, s)
+        h = F.pad(x, pads)
+        conv = F.conv1d if len(self.kernel_size) == 1 else F.conv2d
+        return conv(h, w, self.bias, self.strides)
+
+    def from_flax_leaves(self, leaves):
+        k = np.asarray(leaves["kernel"])              # [*kernel, Cin, Cout]
+        inv = np.argsort(self._flax_order())
+        return {"weight": k.transpose(inv), "bias": leaves["bias"]}
+
+    def to_flax_leaves(self, state):
+        return {"kernel": state["weight"].transpose(self._flax_order()),
+                "bias": state["bias"]}

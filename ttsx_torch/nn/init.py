@@ -5,9 +5,11 @@ The port's modules are built to be filled from a flax tree; a trainer
 that starts from nothing calls ``fresh_init_`` instead, which gives every
 parameter the distribution the reference's ``init`` gives it:
 
-* Dense, attention projections, convs, ConvTranspose, MoE experts:
-  lecun normal (truncated at two standard deviations, std
-  sqrt(1 / fan_in) / 0.8796), biases zero; a ``zero_init`` conv kernel 0;
+* Dense, attention projections, convs (spectral-normed ones too),
+  ConvTranspose, MoE experts: lecun normal (truncated at two standard
+  deviations, std sqrt(1 / fan_in) / 0.8796), biases zero; a
+  ``zero_init`` Dense or conv kernel 0 (the vocoder's FiLM and
+  ``scale_proj`` projections, the refiner's band outputs);
 * LayerNorm / GroupNorm / ScaleNorm scales 1, offsets 0;
 * Embed N(0, 1 / features);
 * S4: C1, C2 N(0, 0.02^2), U, V N(0, 1/d), C0 and ``pos_bias`` zero;
@@ -22,7 +24,7 @@ import torch
 from torch import nn
 
 from ttsx_torch.nn.attention import SelfAttention1d
-from ttsx_torch.nn.conv import Conv1d, ConvTranspose1d
+from ttsx_torch.nn.conv import Conv1d, ConvTranspose1d, SNConv
 from ttsx_torch.nn.film import ResidualConvBlock, ScaleNorm
 from ttsx_torch.nn.gst import GlobalStyleTokens
 from ttsx_torch.nn.layers import GroupNorm
@@ -61,7 +63,12 @@ def fresh_init_(model: nn.Module, gen: torch.Generator) -> nn.Module:
             if p is not None and not isinstance(m, (nn.LayerNorm, GroupNorm)):
                 p.zero_()
         if isinstance(m, nn.Linear):
-            _lecun(m.weight, m.in_features, gen)
+            if getattr(m, "zero_init", False):
+                m.weight.zero_()
+            else:
+                _lecun(m.weight, m.in_features, gen)
+        elif isinstance(m, SNConv):
+            _lecun(m.weight, m.weight[0].numel(), gen)
         elif isinstance(m, Conv1d):
             if m.zero_init:
                 m.weight.zero_()

@@ -63,7 +63,14 @@ def _stats_dtype(x: torch.Tensor) -> torch.dtype:
 
 
 class Dense(nn.Linear):
-    """flax ``nn.Dense``: kernel [in, out] <-> torch weight [out, in]."""
+    """flax ``nn.Dense``: kernel [in, out] <-> torch weight [out, in].
+    ``zero_init`` marks a kernel that a fresh init sets to zero
+    (``nn.init.fresh_init_``)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, zero_init: bool = False):
+        super().__init__(in_features, out_features, bias)
+        self.zero_init = zero_init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w, b = promote_dtype(x, self.weight, self.bias)
@@ -75,6 +82,12 @@ class Dense(nn.Linear):
         out = {"weight": np.asarray(leaves["kernel"]).T}
         if "bias" in leaves:
             out["bias"] = leaves["bias"]
+        return out
+
+    def to_flax_leaves(self, state):
+        out = {"kernel": state["weight"].T}
+        if "bias" in state:
+            out["bias"] = state["bias"]
         return out
 
 
@@ -92,6 +105,9 @@ class LayerNorm(nn.LayerNorm):
 
     def from_flax_leaves(self, leaves):
         return {"weight": leaves["scale"], "bias": leaves["bias"]}
+
+    def to_flax_leaves(self, state):
+        return {"scale": state["weight"], "bias": state["bias"]}
 
 
 class GroupNorm(nn.Module):
@@ -118,6 +134,9 @@ class GroupNorm(nn.Module):
     def from_flax_leaves(self, leaves):
         return {"weight": leaves["scale"], "bias": leaves["bias"]}
 
+    def to_flax_leaves(self, state):
+        return {"scale": state["weight"], "bias": state["bias"]}
+
 
 class Embed(nn.Embedding):
     """flax ``nn.Embed`` (table under ``embedding``): rows in the
@@ -125,6 +144,9 @@ class Embed(nn.Embedding):
 
     def from_flax_leaves(self, leaves):
         return {"weight": leaves["embedding"]}
+
+    def to_flax_leaves(self, state):
+        return {"embedding": state["weight"]}
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,9 @@ block.
 
 ``film_resblock_stack`` launches the kernel for a CUDA tensor and runs
 ``film_resblock_stack_plain`` for a CPU tensor; any other device raises.
+The kernel is forward-only, as the reference's: on the card a call that
+needs a gradient (grad mode on and an operand that requires one) raises.
+The plain version keeps autograd.
 Both take their operands in float32, bfloat16 or float16, compute in
 float32 and return x's dtype, as the reference kernel does.
 """
@@ -79,6 +82,10 @@ film_resblock_stack.launches = 0
 def _launch(x, film, w1s, b1s, w2s, b2s, dilations):
     if x.device.type != "cuda":
         raise ValueError(f"resblock_stack: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, film, w1s, b1s, w2s, b2s)):
+        raise RuntimeError("resblock_stack: K2 is forward-only and has no "
+                           "gradient; run it under torch.no_grad()")
     dtype = x.dtype
     x, film, w1s, b1s, w2s, b2s = build.as_f32(x, film, w1s, b1s, w2s, b2s)
     B, T, C = build.check_tensor(x, 3, "x")

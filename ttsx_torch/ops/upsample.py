@@ -14,7 +14,9 @@ gates hold; see the source's header for the tiles.
 
 ``convt_upsample`` launches the kernel for a CUDA tensor and runs
 ``convt_upsample_plain`` (the same tap-bank arithmetic in PyTorch) for a CPU
-tensor; any other device raises. Both take x and the weights in float32,
+tensor; any other device raises. The kernel is forward-only, as the
+reference's: on the card a call that needs a gradient (grad mode on and
+an operand that requires one) raises. The plain version keeps autograd. Both take x and the weights in float32,
 bfloat16 or float16, compute in float32 and return x's dtype, as the
 reference kernel does (its products are float32, its output cast back to
 x.dtype).
@@ -81,6 +83,9 @@ convt_upsample.launches = 0
 def _launch(x, w, b, f):
     if x.device.type != "cuda":
         raise ValueError(f"upsample: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)):
+        raise RuntimeError("upsample: K1 is forward-only and has no "
+                           "gradient; run it under torch.no_grad()")
     dtype = x.dtype
     x, w, b = build.as_f32(x, w, b)
     B, T, cin = build.check_tensor(x, 3, "x")

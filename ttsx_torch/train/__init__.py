@@ -1,3 +1,4 @@
-"""The acoustic + refiner trainer of the port (``ttsx/train``): losses,
-the optimizer with optax's semantics, per-block train states, the blocks
-and the unified engine. The vocoder GAN block is not ported yet."""
+"""The port's trainer (``ttsx/train``): losses, the optimizer with
+optax's semantics, per-block train states (with the generator's EMA),
+the acoustic, refiner and vocoder GAN blocks, the unified engine, and
+the vocoder's slim export."""

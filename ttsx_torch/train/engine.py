@@ -1,24 +1,35 @@
-"""The unified trainer (``ttsx/train/engine.py``) for the acoustic and
-refiner blocks.
+"""The unified trainer (``ttsx/train/engine.py``): acoustic, refiner and
+vocoder blocks, all three by default, as in the reference.
 
 Each engine step trains the acoustic block on ``grad_accum_steps``
 micro-batches (one update from their mean gradient), then, every
 ``refiner_update_freq`` steps, the refiner on the step's first
-micro-batch and the acoustic prediction for it. ``validate`` runs both
-blocks without draws; with ``sde_noise_annealing`` the refiner's noise
+micro-batch and the acoustic prediction for it, then, from
+``vocoder_freeze_until`` on and when the batch carries ``"wav"``, the
+vocoder GAN on the step's first micro-batch: ``_dynamic_d_steps()``
+discriminator steps and one generator step. With ``dynamic_gan`` the
+ratio of the loss EMAs (d / g, both from 1.0, a = 0.9) adds a
+discriminator step above 1.5 (at most 3) and takes one away below 0.5
+(at least 1); otherwise ``gan_d_steps``. ``validate`` runs the acoustic
+and refiner blocks without draws (a run without either returns ``{}``,
+as the reference's); with ``sde_noise_annealing`` the refiner's noise
 scale and L1 weight follow the validation L1. ``ema_swap_validate`` has
-nothing to swap: neither block keeps an EMA, so validation reads the
-trained weights.
+nothing to swap: only the vocoder's generator keeps an EMA, and the
+vocoder is not validated.
 
-Two departures from the reference, both reference defects:
+Three departures from the reference, the first two reference defects:
 
 * micro-batches of different bucket lengths train (the reference stacks
   them with ``jnp.stack``, which raises);
 * under accumulation the refiner gets micro-batch 0's own ``mel_pred``
-  (the reference pairs micro-batch 0 with the last micro-batch's).
+  (the reference pairs micro-batch 0 with the last micro-batch's);
+* a GAN step that runs out of device memory (``torch.OutOfMemoryError``,
+  nothing else) is skipped and counted in ``oom_count``, as in the
+  reference, but the discriminator updates it made before the failure
+  stay: the port updates in place, where the reference's functional
+  states drop them with the step.
 
-Not ported yet: the vocoder block (``NotImplementedError``), checkpoints,
-the observer hook and the data-parallel mesh.
+Not ported yet: checkpoints, the observer hook and the data-parallel mesh.
 """
 from __future__ import annotations
 
@@ -26,6 +37,7 @@ import time
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
+import torch
 
 from ttsx_torch.core.config import TTSXConfig
 from ttsx_torch.core.device import resolve_device
@@ -41,6 +53,9 @@ class TrainerState:
         self.best_val = float("inf")
         self.noise_scale = 1.0     # sde_noise_annealing
         self.l1_weight = 1.0       # refiner L1 <-> score-matching blend
+        self.d_loss_ema = 1.0      # dynamic_gan ratio
+        self.g_loss_ema = 1.0
+        self.oom_count = 0
         self.step_times: List[float] = []
 
 
@@ -51,7 +66,7 @@ class UnifiedTrainer:
 
     def __init__(self, cfg: TTSXConfig, train_iter: Iterable[Dict],
                  val_iter=None, callbacks: Optional[List[Callback]] = None,
-                 blocks: Iterable[str] = ("acoustic", "refiner"),
+                 blocks: Iterable[str] = ("acoustic", "refiner", "vocoder"),
                  device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -67,9 +82,6 @@ class UnifiedTrainer:
         self.blocks = {}
         for i, name in enumerate(blocks):
             if name not in BLOCKS:
-                if name == "vocoder":
-                    raise NotImplementedError(
-                        "the vocoder GAN block is not ported yet")
                 raise KeyError(f"unknown train block '{name}'")
             self.blocks[name] = BLOCKS[name](cfg, self.device,
                                              cfg.train.seed + i)
@@ -105,6 +117,11 @@ class UnifiedTrainer:
             metrics.update({f"refiner/{k}": float(v)
                             for k, v in out["metrics"].items()})
 
+        if ("vocoder" in self.blocks
+                and self.state.global_step >= cfg.vocoder_freeze_until
+                and "wav" in b):
+            metrics.update(self._gan_step(b))
+
         self.state.global_step += 1
         dt = time.perf_counter() - t0
         self.state.step_times.append(dt)
@@ -113,8 +130,40 @@ class UnifiedTrainer:
             cb.on_step_end(self, metrics)
         return metrics
 
+    def _gan_step(self, b: Dict) -> Dict:
+        voc = self.blocks["vocoder"]
+        d_steps = self._dynamic_d_steps()
+        try:
+            for _ in range(d_steps):
+                dm = voc.disc_step(b)
+            gm = voc.gen_step(b)
+        except torch.OutOfMemoryError:
+            voc.zero_grad()
+            self.state.oom_count += 1
+            return {"vocoder/oom": self.state.oom_count}
+        d_l, g_l = float(dm["d_loss"]), float(gm["g_loss"])
+        a = 0.9
+        st = self.state
+        st.d_loss_ema = a * st.d_loss_ema + (1 - a) * d_l
+        st.g_loss_ema = a * st.g_loss_ema + (1 - a) * g_l
+        return {"vocoder/d_loss": d_l, "vocoder/g_loss": g_l,
+                "vocoder/d_steps": d_steps}
+
+    def _dynamic_d_steps(self) -> int:
+        """``dynamic_gan``: more discriminator steps when D lags G."""
+        tr = self.cfg.train
+        if not tr.novel.dynamic_gan:
+            return tr.gan_d_steps
+        ratio = self.state.d_loss_ema / max(self.state.g_loss_ema, 1e-6)
+        if ratio > 1.5:
+            return min(tr.gan_d_steps + 1, 3)
+        if ratio < 0.5:
+            return max(tr.gan_d_steps - 1, 1)
+        return tr.gan_d_steps
+
     def validate(self) -> Dict:
-        if self.val_iter is None or not self.blocks:
+        if self.val_iter is None or not ({"acoustic", "refiner"}
+                                         & set(self.blocks)):
             return {}
         vals = []
         batches = self.val_iter() if callable(self.val_iter) else self.val_iter

@@ -1,8 +1,9 @@
-"""Training losses of the acoustic and refiner blocks
-(``ttsx/train/losses.py``: ``composite_acoustic_loss``, ``refiner_loss``)."""
+"""Training losses (``ttsx/train/losses.py``): the acoustic block's
+``composite_acoustic_loss``, the refiner's ``refiner_loss`` and the
+vocoder GAN's hinge, feature-matching, warmup, energy and R1 terms."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -50,3 +51,59 @@ def refiner_loss(mel_ref: torch.Tensor, mel_target: torch.Tensor,
         parts["sde"] = sde
         loss = loss + sde_weight * sde
     return loss, parts
+
+
+# ------------------------------------------------------------------ the GAN
+def hinge_d_loss(real_logits: Sequence[torch.Tensor],
+                 fake_logits: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Mean over the sub-discriminators of relu(1 - real) + relu(1 + fake)."""
+    d = 0.0
+    for r, f in zip(real_logits, fake_logits):
+        d = d + torch.relu(1.0 - r).mean() + torch.relu(1.0 + f).mean()
+    return d / max(len(real_logits), 1)
+
+
+def hinge_g_loss(fake_logits: Sequence[torch.Tensor]) -> torch.Tensor:
+    g = 0.0
+    for f in fake_logits:
+        g = g - f.mean()
+    return g / max(len(fake_logits), 1)
+
+
+def log_rms_energy_loss(wav_fake: torch.Tensor, wav_real: torch.Tensor,
+                        eps: float = 1e-6) -> torch.Tensor:
+    """L1 between the per-utterance log-RMS of [B, N, 1] waveforms."""
+    rms_f = torch.sqrt(wav_fake.square().mean(dim=(1, 2)) + eps)
+    rms_r = torch.sqrt(wav_real.square().mean(dim=(1, 2)) + eps)
+    return (torch.log(rms_f) - torch.log(rms_r)).abs().mean()
+
+
+def feature_matching_loss(fake_features, real_features) -> torch.Tensor:
+    """Mean over every feature map of L1 between the fake map and the
+    *detached* real one."""
+    fm, n = 0.0, 0
+    for ff, rf in zip(fake_features, real_features):
+        for f, r in zip(ff, rf):
+            fm = fm + (f - r.detach()).abs().mean()
+            n += 1
+    return fm / max(n, 1)
+
+
+def adversarial_warmup(step: int, r1_interval: int) -> float:
+    """min(1, step / (10 * r1_interval)): 0 at the generator's first step."""
+    return min(1.0, step / (r1_interval * 10.0))
+
+
+def r1_penalty(disc, wav_real: torch.Tensor) -> torch.Tensor:
+    """Mean over the batch of ||d(sum of ``disc``'s logits)/d wav||^2 on
+    real waveforms, by double backward (the result carries a gradient to
+    ``disc``'s parameters)."""
+    w = wav_real.detach().requires_grad_()
+    logits, _ = disc(w)
+    return r1_from_scores(sum(l.sum() for l in logits), w)
+
+
+def r1_from_scores(score: torch.Tensor, wav: torch.Tensor) -> torch.Tensor:
+    """R1 of a scalar ``score`` computed from ``wav`` (requires grad)."""
+    (g,) = torch.autograd.grad(score, wav, create_graph=True)
+    return g.square().sum(dim=tuple(range(1, g.ndim))).mean()

@@ -16,11 +16,19 @@ Both the ``params`` and the ``vq_stats`` collections load. Every flax key
 that maps to nothing and every module entry no key fills is reported, and
 either raises: a wrong or truncated file cannot load as a partly random
 model.
+
+``to_flax`` is the inverse: a module's state dict (or another one of the
+same entries, such as an EMA) as a flax tree, each leaf layer converting
+back with ``to_flax_leaves``; parameters go under ``params``, persistent
+buffers under ``vq_stats``. ``save_slim_npz`` writes trees in the slim
+export's key format.
 """
 from __future__ import annotations
 
+import itertools
+import os
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -110,6 +118,75 @@ def from_flax(module: nn.Module, tree: Mapping) -> Dict[str, torch.Tensor]:
                              f"module shape {tuple(want[k].shape)}")
         state[k] = t
     return state
+
+
+def to_flax(module: nn.Module,
+            state: Optional[Mapping[str, torch.Tensor]] = None
+            ) -> Dict[str, Any]:
+    """The flax variables tree of ``module`` with numpy leaves, from its
+    state dict or from ``state`` (the same keys); ``from_flax`` of it
+    gives the state back."""
+    state = {k: v.detach().cpu().numpy()
+             for k, v in (state or module.state_dict()).items()}
+    params = {n for n, _ in module.named_parameters()}
+    tree: Dict[str, Any] = {}
+
+    def put(col, path, leaves):
+        node = tree.setdefault(col, {})
+        for p in path:
+            node = node.setdefault(p, {})
+        node.update(leaves)
+
+    def walk(m, prefix, path):
+        inner = getattr(m, "flax_inner", None)
+        if inner is not None:
+            path = path + [inner]
+        if hasattr(m, "from_flax_leaves"):
+            own = {n: state[prefix + n] for n, _ in itertools.chain(
+                m.named_parameters(recurse=False),
+                m.named_buffers(recurse=False)) if prefix + n in state}
+            put("params", path, m.to_flax_leaves(own))
+            return
+        for n, _ in itertools.chain(m.named_parameters(recurse=False),
+                                    m.named_buffers(recurse=False)):
+            if prefix + n in state:
+                put("params" if prefix + n in params else "vq_stats", path,
+                    {n: state[prefix + n]})
+        for n, child in m.named_children():
+            walk(child, f"{prefix}{n}.", path + [n])
+
+    walk(module, "", [])
+    return tree
+
+
+def _flat(tree: Mapping, path=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flat(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+# float32 leaves of at least this many values are stored float16, as the
+# reference's exports store them
+F16_MIN_SIZE = 1024
+
+
+def save_slim_npz(path: str, trees: Mapping[str, Mapping]) -> None:
+    """Write ``trees`` (name -> nested dict of arrays) as one compressed npz
+    in ``ttsx.train.slim_export.save_slim``'s format: keys
+    ``<name>|['a']['b']``, float32 leaves of ``F16_MIN_SIZE`` values or more
+    stored as float16. The file is replaced atomically."""
+    out = {}
+    for name, tree in trees.items():
+        for keys, leaf in _flat(tree):
+            leaf = np.asarray(leaf)
+            if leaf.dtype == np.float32 and leaf.size >= F16_MIN_SIZE:
+                leaf = leaf.astype(np.float16)
+            out[f"{name}|" + "".join(f"['{k}']" for k in keys)] = leaf
+    tmp = f"{path}.tmp.{os.getpid()}.npz"
+    np.savez_compressed(tmp, **out)
+    os.replace(tmp, path)
 
 
 def load_flax(module: nn.Module, tree: Mapping) -> nn.Module:
