@@ -108,6 +108,41 @@ Run from the root of a checkout. Phases, one JSON line each:
    nothing. Last, the zoo's ``vocoder.npz`` warm-starts a
    ``VocoderBlock`` at ``zoo_cfg(False)``, which takes one finite GAN step
    on 4 rows x 32 frames of a collated batch.
+5c. checkpoint: the three default blocks at ``tts_cfg()`` widths on
+   phase 5's wav tree, cut to batch 4 with one micro-batch: 4 engine
+   steps straight, against 2 steps (``checkpoint_freq`` 2 writes
+   ``last``), a freshly built trainer restored from ``last`` and steps 3
+   and 4 on the batches that follow; the checkpoints go to the phase's
+   temporary directory. Run with ``torch.backends.cudnn.deterministic``
+   and ``torch.use_deterministic_algorithms(True, warn_only=True)`` (this
+   phase only), the gate is bitwise equality of every entry of the two
+   runs' states (parameters and buffers, Adam moments, counts, update
+   steps, the generator's EMA, every generator state) and equal run
+   states; if an op on the path warns that it has no deterministic
+   implementation, the phase names it, runs a second uninterrupted run,
+   and the gate becomes: the resumed run's max |difference| from the
+   first is at most twice the two uninterrupted runs'. K3 launches once
+   per collated batch (4 and the validation batch), no other kernel.
+   The checkpoint's MB and the ms to save and to restore it.
+5d. refenc: ``load_refenc(device="cuda")`` (the zoo's ``refenc.npz``)
+   embeds 32 held-out ``ToneCorpus`` utterances (8 speakers x 4, 128
+   frames) within ``REFENC_EMB_TOL`` of the CPU route, with the all-pairs
+   EER of both; from the zoo's weights, 3 ``train_step``s, 1
+   ``train_step_mixup`` and 1 ``train_step_accum`` (A = 2) at the zoo's
+   width (ECAPA 512 channels, speaker_dim 256) on batches of 16 x 128
+   frames: the first loss within ``XDEV_RTOL`` relative of the CPU's on
+   the same weights and batch, every loss finite, every parameter moved;
+   ms per step and peak memory; ms per embedding of a 2 s mel (172
+   frames) at batch 1 and at batch 16. No kernel launches.
+5e. prosody: ``load_prosody(device="cuda")`` (the zoo's ``prosody.npz``)
+   on the mels of 4 utterances (4 speakers) of 864 frames (10 s) and of
+   1,100 (past the S4 ``l_max`` of 1024): every output within
+   ``PROSODY_RTOL`` of the CPU route (max |difference| / max |CPU
+   output| over the batch); 3 ``ProsodyTrainer``
+   steps on 16 x 128 frames with targets from ``targets_from_wav``, the
+   first loss within ``XDEV_RTOL`` relative of the CPU's; 3
+   ``EmotionTrainer`` steps; ms per predictor forward at 864 frames and
+   per step. No kernel launches.
 6. timing: CUDA-event times of each kernel beside its plain version (K1
    and K2 at the stage shapes above; K3 by graph replay, eager beside, at
    each batch shape the trainer collated and at the 10 s clip, with the
@@ -225,6 +260,20 @@ STREAM_FRAMES = 2592    # a 30 s request: 11 chunks of 256 with overlap 16
 STREAM_CHUNK, STREAM_OVERLAP = 256, 16
 STREAM_DIRECT_TOL = 1e-5   # one chunk through the streamer vs synthesize
 BF16_REPEATS = 5        # 10 s requests timed per dtype
+CKPT_BATCH = 4          # phase 5c: batch 4, one micro-batch (the cut)
+CKPT_STEPS, CKPT_STOP = 4, 2   # 4 steps straight; stop at 2 and resume
+HELD_OUT_SEED = 1000    # ToneCorpus utterances no zoo training run drew
+REFENC_FRAMES = 128     # the speaker encoder's training crops
+REFENC_BATCH = 16       # 8 speakers x 2 utterances
+REFENC_EMB_TOL = 1e-5   # max |embedding(card) - embedding(CPU)|
+REFENC_LATENCY_FRAMES = 172   # a 2 s mel, as refenc-latency times it
+PROSODY_FRAMES = (864, 1100)  # the 10 s clip, and past the S4 l_max 1024
+PROSODY_RTOL = 1e-4     # card vs CPU: max |diff| / max |CPU| per output
+PROSODY_BATCH = 4       # utterances (4 speakers) at each length, so that
+                        # the per-utterance outputs have a scale: one
+                        # utterance's pause share read 1.8e-4 relative
+                        # (near 0) in chip run 1, PR 14
+STAGE12_STEPS = 3       # train steps of each stage-1/2 trainer
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -1760,6 +1809,291 @@ def vocoder_export_phase(trainer, workdir: Path, batch, seed: int):
                 zoo_warm_start_step=zoo_step)
 
 
+# ------------------------------------------- checkpoints, stages 1 and 2
+def state_diff(got, want):
+    """(every entry bitwise equal, max |difference| over the float
+    entries) of two flat train states."""
+    import torch
+    equal, worst = True, 0.0
+    for k, w in want.items():
+        g = got[k]
+        if not torch.equal(g, w):
+            equal = False
+            if w.is_floating_point():
+                worst = max(worst, float((g.float() - w.float()).abs().max()))
+            else:
+                worst = float("inf")
+    return equal, worst
+
+
+def checkpoint_phase(workdir: Path):
+    """Phase 5c (see the module docstring). Returns its fields."""
+    import os
+    import warnings
+    import torch
+    from ttsx_torch import ops
+    from ttsx_torch.cli.main import data_streams
+    from ttsx_torch.core.config import tts_cfg
+    from ttsx_torch.train.checkpoint import STATE_FILE, flatten
+    from ttsx_torch.train.engine import EXTRA, UnifiedTrainer
+    cfg = tts_cfg()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=CKPT_BATCH, grad_accum_steps=1, val_freq=0,
+        checkpoint_freq=CKPT_STOP))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    stream, _ = data_streams(cfg, str(workdir / "wavs"), "cuda")
+    batches = [next(stream) for _ in range(CKPT_STEPS)]
+    ckdir = workdir / "checkpoints"
+    run_keys = ("global_step",) + tuple(EXTRA)
+
+    def run(steps, start=0, directory=None):
+        """A trainer on batches[start:] to ``steps``; restored from
+        ``last`` first when it starts past 0. Returns (its flat state
+        copied, its run state, ms of the restore)."""
+        tr = UnifiedTrainer(cfg, iter(batches[start:]), [], device="cuda",
+                            checkpoint_dir=directory)
+        restore_ms = None
+        if start:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if not tr.restore_checkpoint("last"):
+                fail("no 'last' checkpoint to resume from")
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t1) * 1e3
+        tr.train(max_steps=steps)
+        torch.cuda.synchronize()
+        return tr, restore_ms
+
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tr, _ = run(CKPT_STEPS)
+            want = {k: v.clone() for k, v in flatten(tr.block_states).items()}
+            want_run = {k: getattr(tr.state, k) for k in run_keys}
+            step_ms = [t * 1e3 for t in tr.state.step_times]
+            del tr
+            tr, _ = run(CKPT_STOP, directory=str(ckdir))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tr.save_checkpoint("timed")
+            save_ms = (time.perf_counter() - t1) * 1e3
+            del tr
+            tr, restore_ms = run(CKPT_STEPS, CKPT_STOP, str(ckdir))
+            bitwise, resumed_diff = state_diff(flatten(tr.block_states), want)
+            got_run = {k: getattr(tr.state, k) for k in run_keys}
+            del tr
+            nondet = sorted({str(w.message).split(" does not have")[0]
+                             for w in caught if "deterministic" in
+                             str(w.message)})
+            straight_diff = None
+            if nondet:
+                tr, _ = run(CKPT_STEPS)
+                straight_diff = state_diff(flatten(tr.block_states), want)[1]
+                del tr
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    launches = ops.launch_counts()
+    fields = dict(
+        batch=CKPT_BATCH, grad_accum=1, steps=CKPT_STEPS, stop_at=CKPT_STOP,
+        mel_shapes=[list(b["mel"].shape) for b in batches],
+        entries=len(want), bitwise_equal=bitwise,
+        resumed_max_abs_diff=resumed_diff,
+        nondeterministic_ops=nondet,
+        straight_runs_max_abs_diff=straight_diff,
+        run_state=got_run, run_state_equal=got_run == want_run,
+        step_ms=step_ms,
+        checkpoint_mb=(ckdir / "timed" / STATE_FILE).stat().st_size / 1e6,
+        save_ms=save_ms, restore_ms=restore_ms, launches=launches)
+    if launches != {**{k: 0 for k in launches},
+                    "mel_frontend": CKPT_STEPS + 1}:
+        fail(f"launches in the checkpoint phase {launches}")
+    if not fields["run_state_equal"]:
+        fail(f"resumed run state {got_run} != uninterrupted {want_run}")
+    if nondet:
+        if not resumed_diff <= 2 * straight_diff:
+            fail(f"resumed run {resumed_diff} from the uninterrupted one, "
+                 f"two uninterrupted runs {straight_diff} apart")
+    elif not bitwise:
+        fail(f"the resumed run differs from the uninterrupted one by "
+             f"{resumed_diff} with every op deterministic")
+    return fields
+
+
+def timed_steps(step, n: int):
+    """Runs ``step()`` n times; (results, ms of each, the card synced)."""
+    import torch
+    out, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out.append(step())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    return out, ms
+
+
+def refenc_phase(seed: int):
+    """Phase 5d (see the module docstring). Returns its fields."""
+    import numpy as np
+    import torch
+    from ttsx_torch import ops
+    from ttsx_torch.data.tonecorpus import ToneCorpus
+    from ttsx_torch.eval.metrics import all_pairs_eer
+    from ttsx_torch.train.refenc_trainer import RefEncTrainer
+    from ttsx_torch.zoo import AUDIO, load_refenc
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    card, enc = load_refenc(device="cuda")
+    cpu, _ = load_refenc(device="cpu")
+    corpus = ToneCorpus(n_speakers=8, audio=AUDIO)
+
+    def mels(per_speaker, frames, s):
+        utts = corpus.utterances(per_speaker, frames, seed=s)
+        return (corpus.features(utts, device="cuda")["mel"],
+                np.asarray([u.speaker for u in utts]))
+
+    held, spk = mels(4, REFENC_FRAMES, HELD_OUT_SEED + seed)
+    e_card, e_cpu = card.embed(held).cpu(), cpu.embed(held)
+    emb_err = float((e_card - e_cpu).abs().max())
+    eer = {"card": all_pairs_eer(e_card.numpy(), spk),
+           "cpu": all_pairs_eer(e_cpu.numpy(), spk)}
+    # steps at the zoo's width from its weights, the rate warmed up in one
+    # update (the zoo's 5000-update warmup would leave lr near 0)
+    tcfg = dataclasses.replace(card.cfg, warmup_steps=1)
+    tr_card, tr_cpu = RefEncTrainer(tcfg, "cuda"), RefEncTrainer(tcfg, "cpu")
+    tr_card.params.load_state_dict(card.params.state_dict())
+    tr_cpu.params.load_state_dict(cpu.params.state_dict())
+    del card, cpu
+    mel, lab = mels(REFENC_BATCH // 8, REFENC_FRAMES, HELD_OUT_SEED + 1)
+    mel2, lab2 = mels(REFENC_BATCH // 8, REFENC_FRAMES, HELD_OUT_SEED + 2)
+    start = [p.detach().clone() for p in tr_card.params.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    first_cpu = float(tr_cpu.train_step(mel, lab)["loss"])
+    steps, step_ms = timed_steps(lambda: tr_card.train_step(mel, lab),
+                                 STAGE12_STEPS)
+    alpha = np.random.default_rng(seed).beta(0.4, 0.4, REFENC_BATCH)
+    perm = np.random.default_rng(seed + 1).permutation(REFENC_BATCH)
+    (mix,), mix_ms = timed_steps(lambda: tr_card.train_step_mixup(
+        mel, mel2[perm], lab, lab2[perm], alpha.astype(np.float32)), 1)
+    (acc,), acc_ms = timed_steps(lambda: tr_card.train_step_accum(
+        np.stack([mel, mel2]), np.stack([lab, lab2])), 1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(m["loss"]) for m in steps + [mix, acc]]
+    unmoved = [n for (n, p), p0 in zip(tr_card.params.named_parameters(),
+                                       start) if torch.equal(p.detach(), p0)]
+    lat, _ = mels(1, REFENC_LATENCY_FRAMES, HELD_OUT_SEED + 3)
+    with torch.inference_mode():
+        x1 = torch.as_tensor(lat[:1], device="cuda")
+        x16 = torch.as_tensor(np.concatenate([lat, lat])[:REFENC_BATCH],
+                              device="cuda")
+        ms1, ms16 = cuda_ms(lambda: enc(x1)), cuda_ms(lambda: enc(x16))
+    launches = ops.launch_counts()
+    fields = dict(
+        config=dict(ecapa_channels=tcfg.ecapa_channels,
+                    speaker_dim=tcfg.speaker_dim, loss=tcfg.loss,
+                    num_speakers=tcfg.num_speakers),
+        held_out=list(held.shape), embedding_max_abs_diff_card_vs_cpu=emb_err,
+        embedding_tolerance=REFENC_EMB_TOL, eer=eer,
+        batch=list(mel.shape), losses=losses, first_loss_cpu=first_cpu,
+        first_loss_rel_err=abs(losses[0] - first_cpu) / abs(first_cpu),
+        unmoved_parameters=unmoved, step_ms=step_ms, mixup_ms=mix_ms[0],
+        accum2_ms=acc_ms[0], train_peak_mem_gb=peak,
+        embed_ms_batch1=ms1, embed_ms_per_item_batch16=ms16 / REFENC_BATCH,
+        latency_frames=REFENC_LATENCY_FRAMES, launches=launches)
+    if not emb_err <= REFENC_EMB_TOL:
+        fail(f"speaker embeddings card vs CPU differ by {emb_err}")
+    if not fields["first_loss_rel_err"] <= XDEV_RTOL:
+        fail(f"refenc first-step loss card {losses[0]} vs CPU {first_cpu}")
+    if not all(np.isfinite(losses)) or unmoved:
+        fail(f"refenc losses {losses}, parameters unmoved {unmoved}")
+    if any(launches.values()):
+        fail(f"the speaker encoder launched a kernel: {launches}")
+    return fields
+
+
+def prosody_phase(seed: int):
+    """Phase 5e (see the module docstring). Returns its fields."""
+    import numpy as np
+    import torch
+    from ttsx_torch import ops
+    from ttsx_torch.data.tonecorpus import ToneCorpus
+    from ttsx_torch.train.emotion_trainer import EmotionTrainer
+    from ttsx_torch.train.prosody_trainer import ProsodyTrainer
+    from ttsx_torch.zoo import AUDIO, load_prosody
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    tr_card, pred = load_prosody(device="cuda")
+    tr_cpu, pred_cpu = load_prosody(device="cpu")
+    corpus = ToneCorpus(n_speakers=8, audio=AUDIO, intonation=0.2)
+    outputs, scales = {}, {}
+    for i, frames in enumerate(PROSODY_FRAMES):
+        utts = corpus.utterances(1, frames, seed=HELD_OUT_SEED + seed + i,
+                                 speakers=range(PROSODY_BATCH))
+        mel = torch.as_tensor(corpus.features(utts, device="cuda")["mel"])
+        with torch.no_grad():
+            got, ref = pred(mel.cuda()), pred_cpu(mel)
+        outputs[frames] = {k: err(got[k].cpu(), ref[k])[1] for k in ref}
+        scales[frames] = {k: float(v.abs().max()) for k, v in ref.items()}
+        if frames == PROSODY_FRAMES[0]:
+            x = mel[:1].cuda()
+            with torch.inference_mode():
+                fwd_ms = cuda_ms(lambda: pred(x))
+    worst = max(v for o in outputs.values() for v in o.values())
+    utts = corpus.utterances(REFENC_BATCH // 8, REFENC_FRAMES,
+                             seed=HELD_OUT_SEED + 4)
+    mel = corpus.features(utts, device="cuda")["mel"]
+    wav = torch.as_tensor(np.stack([u.wav for u in utts]), device="cuda")
+    targets = {k: v.cpu().numpy() for k, v in ProsodyTrainer.targets_from_wav(
+        wav, tr_card.cfg, REFENC_FRAMES).items()}
+    torch.cuda.reset_peak_memory_stats()
+    first_cpu = float(tr_cpu.train_step(mel, targets)["loss"])
+    steps, step_ms = timed_steps(lambda: tr_card.train_step(mel, targets),
+                                 STAGE12_STEPS)
+    losses = [float(m["loss"]) for m in steps]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rng = np.random.default_rng(seed)
+    emo = EmotionTrainer(device="cuda", seed=seed)
+    vader = rng.normal(size=(REFENC_BATCH, 4)).astype(np.float32)
+    pvec = rng.normal(size=(REFENC_BATCH, 19)).astype(np.float32)
+    multi_hot = (rng.random((REFENC_BATCH, 6)) > 0.7).astype(np.float32)
+    emo_steps, emo_ms = timed_steps(lambda: emo.train_step(vader, pvec,
+                                                           multi_hot),
+                                    STAGE12_STEPS)
+    emo_losses = [float(m["loss"]) for m in emo_steps]
+    launches = ops.launch_counts()
+    fields = dict(
+        config=dict(cond_dim=tr_card.cfg.cond_dim,
+                    n_layers=tr_card.cfg.n_layers,
+                    s4=dataclasses.asdict(tr_card.cfg.s4)),
+        outputs_rel_err_card_vs_cpu=outputs, outputs_max_abs_cpu=scales,
+        rtol=PROSODY_RTOL,
+        outputs_batch=PROSODY_BATCH, forward_ms_864_batch1=fwd_ms,
+        batch=list(mel.shape), losses=losses,
+        first_loss_cpu=first_cpu,
+        first_loss_rel_err=abs(losses[0] - first_cpu) / abs(first_cpu),
+        step_ms=step_ms, train_peak_mem_gb=peak, emotion_losses=emo_losses,
+        emotion_step_ms=emo_ms, launches=launches)
+    if not worst <= PROSODY_RTOL:
+        fail(f"prosody outputs card vs CPU: {outputs}")
+    if not fields["first_loss_rel_err"] <= XDEV_RTOL:
+        fail(f"prosody first-step loss card {losses[0]} vs CPU {first_cpu}")
+    if not all(np.isfinite(losses + emo_losses)):
+        fail(f"prosody losses {losses}, emotion losses {emo_losses}")
+    if any(launches.values()):
+        fail(f"the prosody phase launched a kernel: {launches}")
+    return fields
+
+
 def time_gan(voc, batch):
     """ms of the vocoder's disc_step with R1 and without and of its
     gen_step, plain and with ``remat`` (each FiLM residual block
@@ -1973,8 +2307,21 @@ def main(argv=None) -> int:
         t0 = time.time()
         emit("vocoder_export", t0, **vocoder_export_phase(
             trainer, Path(tmp), gan_batch, args.seed))
-    voc = trainer.blocks["vocoder"]
-    del trainer
+        voc = trainer.blocks["vocoder"]
+        del trainer
+
+        # -- 5c. checkpoints: a run stopped at step 2 and resumed from
+        # 'last' against an uninterrupted one
+        t0 = time.time()
+        emit("checkpoint", t0, **checkpoint_phase(Path(tmp)))
+
+    # -- 5d. stage 1, the zoo's speaker encoder: card vs CPU, its trainer
+    t0 = time.time()
+    emit("refenc", t0, **refenc_phase(args.seed))
+
+    # -- 5e. stage 2, the zoo's prosody predictor and the emotion head
+    t0 = time.time()
+    emit("prosody", t0, **prosody_phase(args.seed))
 
     # -- 6. timing: K3 at each batch shape the trainer collated (the
     # largest first) and at the clip, K1 and K2 at the stage shapes of

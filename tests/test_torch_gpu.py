@@ -3,9 +3,15 @@ their plain PyTorch versions (K1, K2 and K5 also on bf16 operands), the
 zoo served through K1 and K2 in f32 and in bf16, and K1 to K5 refusing
 to fall back when their library is missing (K1, K2, K4 and K5, which
 are forward-only, also refuse a call that needs a gradient, and a
-kernel-flagged generator under a gradient raises).
+kernel-flagged generator under a gradient raises); the zoo's speaker
+encoder and prosody predictor on the card against the CPU, and a
+checkpoint of the three train blocks round-tripped on the card and onto
+the CPU.
 
-Each test skips without a card. This file imports neither JAX nor the
+Each test skips without a card, but one: the stage 1 and 2 entry points
+(trainers, zoo loaders, datasets and corpus features) refuse to run
+without a card unless the CPU is asked for, which runs where there is
+none. This file imports neither JAX nor the
 JAX package, so on a machine without JAX it runs on its own:
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
@@ -570,3 +576,95 @@ def test_k1_k2_refuse_gradients_and_do_not_fall_back(cuda, monkeypatch):
             convt_upsample(*k1, 2)
         with pytest.raises(build.KernelCompileError):
             film_resblock_stack(*k2, (1, 3, 5))
+
+
+# ------------------------------------------------ stages 1-2, checkpoints
+def test_stage12_entry_points_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA card")
+    from ttsx_torch.data.refenc_dataset import (ProsodyManifestDataset,
+                                                RefEncDataset)
+    from ttsx_torch.data.tonecorpus import ToneCorpus
+    from ttsx_torch.train.emotion_trainer import EmotionTrainer
+    from ttsx_torch.train.prosody_trainer import ProsodyTrainer
+    from ttsx_torch.train.refenc_trainer import RefEncTrainer
+    from ttsx_torch.zoo import load_prosody, load_refenc
+    corpus = ToneCorpus(n_speakers=2)
+    utts = corpus.utterances(1, 8)
+    manifest = tmp_path / "m.json"
+    manifest.write_text('{"items": []}')
+    for call in (RefEncTrainer, ProsodyTrainer, EmotionTrainer, load_refenc,
+                 load_prosody, lambda: corpus.features(utts),
+                 lambda: RefEncDataset([("x.wav", "a")]),
+                 lambda: ProsodyManifestDataset(manifest)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+def _zoo_mels(frames):
+    from ttsx_torch.data.tonecorpus import ToneCorpus
+    from ttsx_torch.dsp.stft import mel_spectrogram
+    from ttsx_torch.zoo import AUDIO
+    utts = ToneCorpus(n_speakers=8, audio=AUDIO).utterances(1, frames, seed=5)
+    wav = torch.as_tensor(np.stack([u.wav for u in utts]))
+    return mel_spectrogram(wav, AUDIO)[:, :frames]
+
+
+def test_zoo_refenc_and_prosody_card_match_cpu(cuda):
+    """The zoo's speaker embedding (8 utterances, 128 frames) within 1e-5
+    and the prosody predictor's outputs (864 frames) within 1e-4 of each
+    output's largest magnitude, card against CPU."""
+    from ttsx_torch.zoo import load_prosody, load_refenc
+    mel = _zoo_mels(128)
+    card, _ = load_refenc(device="cuda")
+    cpu, _ = load_refenc(device="cpu")
+    _close(card.embed(mel), cpu.embed(mel), rtol=0, atol=1e-5)
+    mel = _zoo_mels(864)[:2]
+    _, card = load_prosody(device="cuda")
+    _, cpu = load_prosody(device="cpu")
+    with torch.no_grad():
+        got, ref = card(mel.cuda()), cpu(mel)
+    for k in ref:
+        _close(got[k], ref[k], rtol=0,
+               atol=1e-4 * float(ref[k].abs().max()))
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A tiny three-block trainer on the card after one step: saved and
+    restored into a fresh one on the card, every entry equal and on its
+    device. A trainer on the CPU refuses it: a CUDA generator's state is
+    not a CPU generator's."""
+    from ttsx_torch.core import config as tc
+    from ttsx_torch.data.synthetic import synthetic_stream
+    from ttsx_torch.train.checkpoint import CheckpointMismatch, flatten
+    from ttsx_torch.train.engine import UnifiedTrainer
+    s4 = tc.S4Config(heads=2, norm_groups=2, causal=True)
+    cfg = tc.TTSXConfig(
+        audio=tc.AudioConfig(sample_rate=16000, n_fft=256, win_length=256,
+                             hop_length=64),
+        acoustic=tc.AcousticConfig(text_emb_dim=16, hidden_channels=16,
+                                   conformer_layers=1, transformer_dim=32,
+                                   num_layers=2, attention_heads=2,
+                                   speaker_dim=8),
+        refiner=tc.RefinerConfig(levels=1, cond_dim=16, hidden_channels=16,
+                                 hsf_hidden=8, style_dim=8, beta_hidden=8,
+                                 s4=s4, vq_dims=(80,), vq_codes=(16,)),
+        vocoder=tc.VocoderConfig(hidden_dim=16, cond_dim=8, style_dim=16,
+                                 disc_ch_growth=2, disc_periods=(2, 3),
+                                 disc_kernel_sizes=(15,), stft_sizes=(512,)),
+        train=tc.TrainConfig(warmup_steps=2, max_steps=8, val_freq=0,
+                             checkpoint_freq=1, grad_accum_steps=1))
+    a = UnifiedTrainer(cfg, synthetic_stream(cfg, 2, 16, n=2),
+                       checkpoint_dir=str(tmp_path))
+    a.train(max_steps=1)
+    want = flatten(a.block_states)
+    b = UnifiedTrainer(cfg, [], checkpoint_dir=str(tmp_path))
+    assert b.restore_checkpoint("last")
+    got = flatten(b.block_states)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].device == want[k].device, k
+        assert torch.equal(got[k], want[k]), k
+    cpu = UnifiedTrainer(cfg, [], device="cpu", checkpoint_dir=str(tmp_path))
+    with pytest.raises(CheckpointMismatch, match="rng"):
+        cpu.restore_checkpoint("last")

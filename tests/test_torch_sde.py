@@ -143,5 +143,6 @@ def test_main_synth_sde_on_the_cpu(tmp_path, capsys):
     assert float(np.abs(want).max()) > 1e-3
     # 16-bit PCM on disk
     np.testing.assert_allclose(wav, np.clip(want, -1, 1), atol=1 / 16384)
-    with pytest.raises(NotImplementedError, match="checkpoints"):
+    # a directory without a 'best' checkpoint is refused
+    with pytest.raises(FileNotFoundError, match="best"):
         main_synth(argv + ["--checkpoint", str(tmp_path)])

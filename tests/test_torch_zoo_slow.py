@@ -117,3 +117,71 @@ def test_zoo_bf16_server_at_864_frames_matches_reference():
         assert float(np.abs(g - f).max()) <= 1.5 * d + 1e-6
         np.testing.assert_allclose(g, o, rtol=0, atol=ZOO_BF16_OP_TOL)
         np.testing.assert_allclose(g, b, rtol=0, atol=ZOO_BF16_TOL)
+
+
+# ------------------------------------------------ stages 1 and 2 of the zoo
+def zoo_mels(frames: int, n: int = 4, seed: int = 5):
+    """Held-out utterances of the zoo's training corpus as the exports'
+    unnormalized log-mel [n, frames, 80], and their speakers."""
+    from ttsx_torch.data.tonecorpus import ToneCorpus
+    from ttsx_torch.dsp.stft import mel_spectrogram
+    from ttsx_torch.zoo import AUDIO
+    corpus = ToneCorpus(n_speakers=8, audio=AUDIO)
+    utts = corpus.utterances(1, frames, seed=seed, speakers=range(n))
+    wav = torch.as_tensor(np.stack([u.wav for u in utts]))
+    return (mel_spectrogram(wav, AUDIO)[:, :frames].numpy(),
+            np.asarray([u.speaker for u in utts]))
+
+
+@pytest.mark.parametrize("frames", [128, 864])
+def test_zoo_refenc_and_prosody_match_reference(frames):
+    """``load_refenc`` / ``load_prosody`` at full width against
+    ``ttsx.zoo``'s on the corpus's mels: embeddings within 1e-5, each of
+    the predictor's outputs within 1e-4 of its largest magnitude (the
+    FFT convolutions of 864 + 1024 points round differently: 2.1e-5 of
+    4.5 at most measured)."""
+    from ttsx import zoo as jzoo
+    from ttsx_torch.zoo import load_prosody, load_refenc
+    mel, _ = zoo_mels(frames)
+    jt, jp = jzoo.load_refenc()
+    pt, enc = load_refenc(device="cpu")
+    assert pt.cfg.loss == "arcface" and pt.cfg.num_speakers == 12
+    ref = np.asarray(jt.embed(jp, jax.numpy.asarray(mel)))
+    np.testing.assert_allclose(pt.embed(mel).numpy(), ref, rtol=0, atol=1e-5)
+    jt, jp = jzoo.load_prosody()
+    pt, pred = load_prosody(device="cpu")
+    ref = jt.model.apply(jp, jax.numpy.asarray(mel))
+    with torch.no_grad():
+        got = pred(torch.as_tensor(mel))
+    for k in ref:
+        r = np.asarray(ref[k])
+        np.testing.assert_allclose(got[k].numpy(), r, rtol=0,
+                                   atol=1e-4 * np.abs(r).max(), err_msg=k)
+
+
+def test_ge2e_export_loads_in_the_port(tmp_path):
+    """A GE2E-headed speaker export (the reference trainer's own tree)
+    loads whole in the port, which reads the head from its leaves; the
+    reference's ``load_refenc`` builds the ArcFace head of its config's
+    default and cannot load it."""
+    from ttsx import zoo as jzoo
+    from ttsx.core.config import RefEncConfig
+    from ttsx.eval.parity_common import AUDIO
+    from ttsx.train.refenc_trainer import RefEncTrainer
+    from ttsx.train.slim_export import load_slim, save_slim
+    from ttsx_torch.zoo import load_refenc
+    jt = RefEncTrainer(RefEncConfig(audio=AUDIO, loss="ge2e",
+                                    num_speakers=5))
+    mel, _ = zoo_mels(128)
+    state = jt.init_state(jax.random.PRNGKey(3), jax.numpy.asarray(mel))
+    path = str(tmp_path / "refenc.npz")
+    save_slim(path, {"refenc": state.params,
+                     "_meta": {"num_speakers": np.int64(5)}})
+    pt, _ = load_refenc(str(tmp_path), device="cpu")
+    assert pt.cfg.loss == "ge2e"
+    assert float(pt.params.ge2e_w.detach()) == 10.0
+    stored = load_slim(path, {"refenc": state.params})["refenc"]
+    ref = np.asarray(jt.embed(stored, jax.numpy.asarray(mel)))
+    np.testing.assert_allclose(pt.embed(mel).numpy(), ref, rtol=0, atol=1e-5)
+    with pytest.raises(KeyError, match="arcface_w"):
+        jzoo.load_refenc(str(tmp_path))

@@ -9,9 +9,23 @@ from __future__ import annotations
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from ttsx_torch.weights import load_flax
+
+
+@pytest.fixture
+def one_torch_thread():
+    """torch on one intra-op thread for the test: the suite runs several
+    workers on the same cores, and torch's thread pool spinning beside
+    them slows training steps by about 90x (two runs of 3 steps of a tiny
+    three-block trainer, 6 processes on 8 CPU cores: 460 s each with 8
+    threads, 5 s with 1)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def randn(seed: int, *shape, scale: float = 1.0) -> np.ndarray:

@@ -1,12 +1,15 @@
 """PyTorch/CUDA port of ttsx's text->waveform synthesis chain and its
-trainer (acoustic, refiner and the vocoder GAN).
+trainer (acoustic, refiner and the vocoder GAN, with checkpoints), and
+of stages 1 and 2: the speaker encoder and the prosody predictor with
+their trainers.
 
 Layout mirrors ``ttsx``: ``core`` (configs), ``nn`` (layers), ``models``
-(acoustic, refiner, vocoder, discriminators, pipeline), ``ops`` (hand-written CUDA
-kernels with their plain PyTorch versions), ``dsp`` and ``data`` (the
-trainer's data path), ``train`` (blocks and engine), ``cli``,
-``weights`` (flax tree / slim npz -> state dicts), ``zoo``, ``serve``
-and ``streaming``. The serving surface is exported here, imported on
+(speaker encoder, prosody, acoustic, refiner, vocoder, discriminators,
+pipeline), ``ops`` (hand-written CUDA kernels with their plain PyTorch
+versions), ``dsp`` and ``data`` (the trainers' data paths), ``train``
+(blocks, engine, checkpoints, the stage-1/2 trainers), ``eval`` (EER),
+``cli``, ``weights`` (flax tree / slim npz -> state dicts), ``zoo``,
+``serve`` and ``streaming``. The serving surface is exported here, imported on
 first use as in ``ttsx``. Importing the package loads no kernel and needs
 neither a card nor a compiler.
 """

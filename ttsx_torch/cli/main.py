@@ -4,7 +4,7 @@ batches, and ``main_synth``, text -> waveform.
 
     python -m ttsx_torch.cli.main --data-root DIR [--max-steps N]
         [--config cfg.json] [--output-dir out] [--device cuda|cpu]
-        [--blocks acoustic,refiner,vocoder]
+        [--blocks acoustic,refiner,vocoder] [--resume]
 
 With ``--data-root`` the path is: ``TTSDataset`` -> ``TTSCollator`` (mel
 through K3 and f0 / energy on ``--device``) -> ``collator_to_trainer_batch``
@@ -14,20 +14,31 @@ validation set is one batch of the first items, collated without
 augmentation. ``--synthetic`` (or no data root)
 trains on synthetic batches of 2 x 16 frames. The run ends with one
 validation pass; ``train_log.jsonl`` and ``step_times.json`` go to
-``--output-dir``. The vocoder trains on each step's collated wav (cut to
-whole generator hops: ``train.blocks.match_lengths``). Checkpoints are
-not ported yet.
+``--output-dir`` and the checkpoints (``best``, ``last`` every
+``checkpoint_freq`` steps, ``final``) to ``--output-dir``/checkpoints.
+``--resume`` restores ``last`` from there first and trains on to
+``--max-steps``; the batches start again from the stream's seed, as in
+the reference. The vocoder trains on each step's collated wav (cut to
+whole generator hops: ``train.blocks.match_lengths``).
 
     python -m ttsx_torch.cli.synth [--zoo [DIR]] [--sde] [--text T]
         [--frames N] [--out synth.wav] [--seed S] [--device cuda|cpu]
+        [--config cfg.json] [--checkpoint DIR]
 
 ``main_synth`` (``python -m ttsx_torch.cli.synth``, as the reference's
 ``ttsx-synth``) synthesizes ``--frames`` mel frames of ``--text`` with the
-zoo model (``--zoo``) or a fresh init of ``TTSXConfig()`` seeded by
-``--seed``, single-pass or with ``--sde`` (noise from a generator on the
-device seeded by ``--seed``), writes the wav and prints ``{"wav", "samples", "seconds"}``. ``--checkpoint`` raises
-until checkpoints are ported; ``--output-dir`` is accepted as the
-reference's common flag and, as there, not used by synthesis.
+zoo model (``--zoo``) or a fresh init of ``--config`` (default
+``TTSXConfig()``) seeded by ``--seed``, single-pass or with ``--sde``
+(noise from a generator on the device seeded by ``--seed``), writes the
+wav and prints ``{"wav", "samples", "seconds"}``. ``--checkpoint DIR``
+first loads the ``best`` checkpoint of a ``main_train`` run (DIR is its
+checkpoint directory) into the pipeline: the acoustic and refiner
+models, the generator's EMA and the GST, each stage the run trained,
+whole; the JSON line then also names the tag, step and stages. The
+reference restores the engine's block states into the pipeline's
+parameter tree, a different tree, which raises. ``--output-dir`` is
+accepted as the reference's common flag and, as there, not used by
+synthesis.
 """
 from __future__ import annotations
 
@@ -81,6 +92,8 @@ def main_train(argv=None) -> int:
     p.add_argument("--output-dir", default="./output")
     p.add_argument("--device", default="cuda")
     p.add_argument("--blocks", default="acoustic,refiner,vocoder")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the 'last' checkpoint of --output-dir")
     args = p.parse_args(argv)
 
     from ttsx_torch.core.config import TTSXConfig, from_dict
@@ -106,7 +119,10 @@ def main_train(argv=None) -> int:
     trainer = UnifiedTrainer(
         cfg, stream, val, blocks=blocks, device=device,
         callbacks=[JSONLLogger(str(out / "train_log.jsonl"), every=1),
-                   StepTimeArtifact(str(out / "step_times.json"))])
+                   StepTimeArtifact(str(out / "step_times.json"))],
+        checkpoint_dir=str(out / "checkpoints"))
+    if args.resume:
+        trainer.restore_checkpoint("last")
     state = trainer.train(max_steps=args.max_steps)
     val_metrics = trainer.validate()
     print(json.dumps({"global_step": state.global_step,
@@ -120,7 +136,9 @@ def main_synth(argv=None) -> int:
     p = argparse.ArgumentParser("ttsx-torch-synth")
     p.add_argument("--text", default="hello world")
     p.add_argument("--frames", type=int, default=256)
-    p.add_argument("--checkpoint")
+    p.add_argument("--checkpoint", metavar="DIR",
+                   help="load the 'best' checkpoint of a training run")
+    p.add_argument("--config", help="TTSXConfig JSON of the fresh init")
     p.add_argument("--zoo", nargs="?", const="", metavar="DIR",
                    help="load the git-tracked pretrained zoo exports "
                         "(default dir: eval_results/zoo) with its config")
@@ -130,11 +148,9 @@ def main_synth(argv=None) -> int:
     p.add_argument("--output-dir", default="./output")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.checkpoint:
-        raise NotImplementedError("checkpoints are not ported yet")
 
     import torch
-    from ttsx_torch.core.config import TTSXConfig
+    from ttsx_torch.core.config import TTSXConfig, from_dict
     from ttsx_torch.core.device import resolve_device, set_f32_numerics
     from ttsx_torch.data.dataset import TextEncoder, write_wav
     device = resolve_device(args.device)
@@ -146,8 +162,15 @@ def main_synth(argv=None) -> int:
     else:
         from ttsx_torch.models.pipeline import TTSPipeline
         from ttsx_torch.nn.init import fresh_init_
-        pipe = fresh_init_(TTSPipeline(TTSXConfig()),
+        cfg = (from_dict(TTSXConfig, json.loads(Path(args.config).read_text()))
+               if args.config else TTSXConfig())
+        pipe = fresh_init_(TTSPipeline(cfg),
                            torch.Generator().manual_seed(args.seed)).to(device)
+    loaded = {}
+    if args.checkpoint:
+        from ttsx_torch.train.checkpoint import load_pipeline_checkpoint
+        loaded = {"checkpoint": load_pipeline_checkpoint(pipe,
+                                                         args.checkpoint)}
     cfg = pipe.cfg
     ac = cfg.acoustic
     T = args.frames
@@ -163,7 +186,7 @@ def main_synth(argv=None) -> int:
                           generator=gen).wav
     write_wav(args.out, wav[0, :, 0].cpu().numpy(), cfg.vocoder.sr)
     print(json.dumps({"wav": args.out, "samples": int(wav.shape[1]),
-                      "seconds": wav.shape[1] / cfg.vocoder.sr}))
+                      "seconds": wav.shape[1] / cfg.vocoder.sr, **loaded}))
     return 0
 
 

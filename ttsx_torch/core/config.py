@@ -1,9 +1,11 @@
 """Configuration dataclasses of the synthesis chain and its trainer.
 
 A stdlib-only copy of the part of ``ttsx.core.config`` that synthesis and
-the trainer read: ``AudioConfig``, ``S4Config``,
+the trainers read: ``AudioConfig``, ``S4Config``, ``RefEncConfig`` (the
+speaker encoder), ``ProsodyConfig`` (the prosody predictor),
 ``AcousticConfig``, ``RefinerConfig``, ``VocoderConfig``, ``NovelConfig``,
-``TrainConfig`` and a ``TTSXConfig`` root holding them. Field
+``TrainConfig`` and a ``TTSXConfig`` root holding the synthesis chain's
+and its trainers'. Field
 names and defaults are the reference's, so a dict written by
 ``ttsx.core.config.to_dict`` loads here through ``from_dict`` (keys this
 tree does not carry are ignored) and back.
@@ -44,6 +46,57 @@ class S4Config:
     # 'auto' and 'fft' run the rFFT long convolution; 'scan' the causal
     # recurrence in plain PyTorch, 'pallas' the same through kernel K4.
     kernel_mode: str = "auto"
+
+
+@dataclass(frozen=True)
+class RefEncConfig:
+    """The speaker-embedding encoder and its trainer."""
+    audio: AudioConfig = field(default_factory=AudioConfig)
+    speaker_dim: int = 256
+    backbone: str = "ecapa_tdnn"  # res2net | conformer | ecapa_tdnn | ssl_host
+    pooling: str = "multi_head_attentive"  # self_attentive | stats
+    pooling_heads: int = 4
+    loss: str = "arcface"  # arcface | ge2e
+    arcface_margin: float = 0.3
+    # linear 0 -> arcface_margin over this many steps (0: fixed margin)
+    arcface_margin_warmup: int = 0
+    arcface_scale: float = 30.0
+    ge2e_init_w: float = 10.0
+    ge2e_init_b: float = -5.0
+    num_speakers: int = 256
+    ecapa_channels: int = 512
+    conformer_layers: int = 4
+    conformer_heads: int = 4
+    conformer_ff: int = 256
+    dropout: float = 0.1
+    micro_batch: int = 8
+    grad_accum: int = 16
+    warmup_steps: int = 5000
+    total_steps: int = 200_000
+    lr: float = 1e-4
+    grad_clip: float = 3.0
+    checkpoint_every: int = 5000
+    eval_every: int = 5000
+    augment: bool = True
+
+
+@dataclass(frozen=True)
+class ProsodyConfig:
+    """The S4 prosody predictor and its loss weights."""
+    audio: AudioConfig = field(default_factory=AudioConfig)
+    mel_dim: int = 80
+    cond_dim: int = 256
+    n_layers: int = 4
+    n_freq: int = 80
+    n_mfcc: int = 13
+    dropout: float = 0.1
+    s4: S4Config = field(default_factory=S4Config)
+    f0_weight: float = 1.0
+    energy_weight: float = 1.0
+    pitch_var_weight: float = 1.0
+    speech_rate_weight: float = 1.0
+    pause_dur_weight: float = 1.0
+    mfcc_weight: float = 1.0
 
 
 @dataclass(frozen=True)
@@ -183,6 +236,8 @@ class TrainConfig:
 @dataclass(frozen=True)
 class TTSXConfig:
     audio: AudioConfig = field(default_factory=AudioConfig)
+    ref_enc: RefEncConfig = field(default_factory=RefEncConfig)
+    prosody: ProsodyConfig = field(default_factory=ProsodyConfig)
     acoustic: AcousticConfig = field(default_factory=AcousticConfig)
     refiner: RefinerConfig = field(default_factory=RefinerConfig)
     vocoder: VocoderConfig = field(default_factory=VocoderConfig)

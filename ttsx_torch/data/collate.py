@@ -1,5 +1,5 @@
 """Batch collation (``ttsx/data/collate.py``): bucketed padding, seeded
-wav augments, feature cache, SpecAugment, and the batched features.
+wav augments, feature cache, SpecAugment, mixup, and the batched features.
 
 The augments and SpecAugment are numpy on the host, as in the reference.
 The features are computed in one batched call on ``device``: the log-mel
@@ -104,6 +104,16 @@ def spec_augment(mel: np.ndarray, rng: np.random.Generator,
             t0 = rng.integers(0, max(T - t, 1))
             mel[b, t0:t0 + t, :] = 0.0
     return mel
+
+
+def mixup(mel: np.ndarray, labels: np.ndarray, rng: np.random.Generator,
+          alpha: float = 0.4):
+    """Beta(alpha, alpha) mixup of a batch with a permutation of itself:
+    (mixed mel, labels, permuted labels, lambda)."""
+    lam = rng.beta(alpha, alpha)
+    perm = rng.permutation(len(mel))
+    mixed = lam * mel + (1 - lam) * mel[perm]
+    return mixed.astype(mel.dtype), labels, labels[perm], lam
 
 
 @dataclass

@@ -1,4 +1,5 @@
-"""Frame-level f0 and energy (``ttsx/dsp/features.py``) in PyTorch.
+"""Frame-level f0, energy and an energy VAD (``ttsx/dsp/features.py``)
+in PyTorch.
 
 An autocorrelation pitch tracker over the mel frontend's framing:
 mean removal, FFT autocorrelation, peak pick in the [fmin, fmax] lag
@@ -34,3 +35,13 @@ def extract_f0_energy(wav: torch.Tensor, cfg: AudioConfig,
     f0 = torch.where(voiced, cfg.sample_rate / best.float(),
                      torch.zeros_like(energy))
     return f0, energy, voiced
+
+
+def energy_vad(wav: torch.Tensor, cfg: AudioConfig,
+               threshold: float = 0.02) -> torch.Tensor:
+    """[B, T] voice activity: each frame's RMS above ``threshold`` times
+    the utterance's loudest frame's (floored at 1e-6)."""
+    frames = frame_signal(wav.float(), cfg.win_length, cfg.hop_length)
+    rms = torch.sqrt((frames ** 2).mean(dim=-1) + 1e-10)
+    ref = rms.amax(dim=-1, keepdim=True).clamp_min(1e-6)
+    return rms > threshold * ref

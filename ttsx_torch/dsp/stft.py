@@ -5,6 +5,8 @@ magnitude and the mel projection are torch ops on the wav's device. This
 is the reference's plain ``|rfft|`` route; the collator's route is the
 mel-frontend kernel K3 (``ttsx_torch/ops/mel_frontend.py``), which
 floors the magnitude at ``sqrt(1e-12)`` and so differs on silent frames.
+``mfcc`` is the DCT-II of this log-mel; ``istft`` the overlap-add
+inverse of a magnitude and phase.
 """
 from __future__ import annotations
 
@@ -95,3 +97,42 @@ def mel_spectrogram(wav: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
                          device=wav.device)
     mel = torch.log(mag @ fb + cfg.log_eps)
     return normalize_mel(mel) if cfg.mel_normalize else mel
+
+
+def dct_matrix(n_mels: int, n_mfcc: int) -> np.ndarray:
+    """The orthonormal DCT-II rows 0..n_mfcc-1 over n_mels, float32."""
+    k = np.arange(n_mfcc)[:, None]
+    dct = np.cos(np.pi * k * (2 * np.arange(n_mels)[None, :] + 1)
+                 / (2 * n_mels)) * np.sqrt(2.0 / n_mels)
+    dct[0] *= 1.0 / np.sqrt(2.0)
+    return dct.astype(np.float32)
+
+
+def mfcc(wav: torch.Tensor, cfg: AudioConfig, n_mfcc: int = 13
+         ) -> torch.Tensor:
+    """wav [B, N] -> MFCC [B, T, n_mfcc]: the DCT-II of ``mel_spectrogram``."""
+    dct = torch.as_tensor(dct_matrix(cfg.n_mels, n_mfcc), device=wav.device)
+    return mel_spectrogram(wav, cfg) @ dct.T
+
+
+def istft(mag: torch.Tensor, phase: torch.Tensor, n_fft: int, hop: int
+          ) -> torch.Tensor:
+    """[B, T, n_fft//2+1] magnitude and phase -> wav [B, hop * (T - 1)]:
+    each frame's inverse rFFT under the Hann window, overlap-added and
+    divided by the summed squared window (floored at 1e-8), with the
+    centring's n_fft/2 samples cut from each end."""
+    frames = torch.fft.irfft(torch.polar(mag.float(), phase.float()),
+                             n=n_fft, dim=-1)
+    win = torch.as_tensor(hann_window(n_fft), dtype=torch.float32,
+                          device=mag.device)
+    B, T, _ = frames.shape
+    out_len = n_fft + hop * (T - 1)
+
+    def overlap_add(x):                       # [B', T, n_fft] -> [B', out]
+        return F.fold(x.transpose(1, 2), (1, out_len), (1, n_fft),
+                      stride=(1, hop))[:, 0, 0]
+
+    out = overlap_add(frames * win)
+    norm = overlap_add((win ** 2).expand(1, T, n_fft))
+    out = out / norm.clamp_min(1e-8)
+    return out[:, n_fft // 2: out_len - n_fft // 2]

@@ -26,3 +26,11 @@ def rotary_mix(x: torch.Tensor) -> torch.Tensor:
                          device=x.device)[:, None] * inv_freq[None, :]
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb) * x + torch.sin(emb) * torch.roll(x, 1, dims=-1)
+
+
+def extend_to_length(pe: torch.Tensor, t: int) -> torch.Tensor:
+    """Crop a [L, D] table to ``t`` rows, or extend it with copies of its
+    last row."""
+    if t <= pe.shape[0]:
+        return pe[:t]
+    return torch.cat([pe, pe[-1:].expand(t - pe.shape[0], -1)], dim=0)

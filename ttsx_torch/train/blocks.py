@@ -12,6 +12,11 @@ own optimizer and update count, and the frozen STFT loss; its draws are
 the generator's (``states["gen"].draws``).
 
 Batches are dicts of numpy arrays or tensors (``as_tensors`` moves them).
+
+A block's ``state_dict`` is its checkpoint entry, the reference's block
+state: the acoustic and refiner blocks' one ``TrainState``; the vocoder
+block's five (``gen``, ``gst``, ``mpd``, ``msd``, ``mbd``) and the STFT
+loss's filterbank (``stft``), as the reference's ``VocoderStates``.
 """
 from __future__ import annotations
 
@@ -77,6 +82,12 @@ class _Block:
     def _step(self, loss: torch.Tensor) -> float:
         loss.backward()
         return self.state.apply_gradients()
+
+    def state_dict(self) -> Dict:
+        return self.state.state_dict()
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.state.load_state_dict(state)
 
 
 class AcousticBlock(_Block):
@@ -341,6 +352,16 @@ class VocoderBlock:
     def zero_grad(self) -> None:
         for st in self.states.values():
             st.module.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> Dict:
+        out = {name: st.state_dict() for name, st in self.states.items()}
+        out["stft"] = {"params": dict(self.stft.state_dict())}
+        return out
+
+    def load_state_dict(self, state: Dict) -> None:
+        for name, st in self.states.items():
+            st.load_state_dict(state[name])
+        self.stft.load_state_dict(state["stft"]["params"], strict=True)
 
 
 BLOCKS = {"acoustic": AcousticBlock, "refiner": RefinerBlock,

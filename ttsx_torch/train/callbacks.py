@@ -11,6 +11,7 @@ class Callback:
     def on_train_start(self, trainer): ...
     def on_step_end(self, trainer, metrics: Dict): ...
     def on_validation_end(self, trainer, metrics: Dict): ...
+    def on_checkpoint(self, trainer, step: int): ...
     def on_train_end(self, trainer): ...
 
 

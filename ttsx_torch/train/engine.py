@@ -17,7 +17,20 @@ scale and L1 weight follow the validation L1. ``ema_swap_validate`` has
 nothing to swap: only the vocoder's generator keeps an EMA, and the
 vocoder is not validated.
 
-Three departures from the reference, the first two reference defects:
+Checkpoints (``ttsx_torch.train.checkpoint``, with ``checkpoint_dir``):
+``train()`` saves ``best`` after a validation that improves
+``best_val``, ``last`` every ``checkpoint_freq`` steps and ``final`` at
+the end, calling each callback's ``on_checkpoint`` after each save, as
+the reference's does. A checkpoint holds every block's
+``state_dict`` (parameters and buffers, optimizer moments and counts,
+update steps, the generator's EMA, each block's generator state) and,
+in ``extra``, ``best_val``, ``noise_scale``, ``l1_weight`` and the
+dynamic-GAN loss EMAs. ``restore_checkpoint`` loads it into the
+trainer's blocks, which exist from construction on, so the run goes on
+bit for bit from the step it was saved at (the caller feeds the batches
+that follow).
+
+Five departures from the reference, the first two reference defects:
 
 * micro-batches of different bucket lengths train (the reference stacks
   them with ``jnp.stack``, which raises);
@@ -27,9 +40,15 @@ Three departures from the reference, the first two reference defects:
   nothing else) is skipped and counted in ``oom_count``, as in the
   reference, but the discriminator updates it made before the failure
   stay: the port updates in place, where the reference's functional
-  states drop them with the step.
+  states drop them with the step;
+* ``extra`` also holds ``d_loss_ema`` and ``g_loss_ema``, so a resumed
+  run keeps its discriminator:generator ratio (the reference's starts it
+  again from 1.0 and drifts from an uninterrupted run);
+* a checkpoint can be restored before the first ``train_step`` (the
+  reference's ``main_train --resume`` restores into the empty state
+  tree of a trainer that has not yet built its states, which raises).
 
-Not ported yet: checkpoints, the observer hook and the data-parallel mesh.
+Not ported yet: the observer hook and the data-parallel mesh.
 """
 from __future__ import annotations
 
@@ -41,8 +60,14 @@ import torch
 
 from ttsx_torch.core.config import TTSXConfig
 from ttsx_torch.core.device import resolve_device
+from ttsx_torch.train import checkpoint as ckpt
 from ttsx_torch.train.blocks import BLOCKS, as_tensors
 from ttsx_torch.train.callbacks import Callback
+
+# TrainerState fields a checkpoint's ``extra`` carries, with the values a
+# checkpoint without them restores
+EXTRA = {"best_val": float("inf"), "noise_scale": 1.0, "l1_weight": 1.0,
+         "d_loss_ema": 1.0, "g_loss_ema": 1.0}
 
 
 class TrainerState:
@@ -67,8 +92,9 @@ class UnifiedTrainer:
     def __init__(self, cfg: TTSXConfig, train_iter: Iterable[Dict],
                  val_iter=None, callbacks: Optional[List[Callback]] = None,
                  blocks: Iterable[str] = ("acoustic", "refiner", "vocoder"),
-                 device="cuda"):
+                 checkpoint_dir: Optional[str] = None, device="cuda"):
         self.cfg = cfg
+        self.checkpoint_dir = checkpoint_dir
         self.device = resolve_device(device)
         self.train_iter = iter(train_iter)
         # a one-shot generator is kept as a list, so that every validation
@@ -189,6 +215,37 @@ class UnifiedTrainer:
             cb.on_validation_end(self, metrics)
         return metrics
 
+    @property
+    def block_states(self) -> Dict[str, Dict]:
+        """Each block's ``state_dict``: the checkpoint's tree."""
+        return {name: b.state_dict() for name, b in self.blocks.items()}
+
+    def save_checkpoint(self, tag: str = "last") -> None:
+        if self.checkpoint_dir is None:
+            return
+        extra = {k: getattr(self.state, k) for k in EXTRA}
+        ckpt.save_checkpoint(self.checkpoint_dir, tag, self.block_states,
+                             self.state.global_step, extra)
+        for cb in self.callbacks:
+            cb.on_checkpoint(self, self.state.global_step)
+
+    def restore_checkpoint(self, tag: str = "last") -> bool:
+        """Load ``tag`` into the blocks and the run's state; False when
+        there is no checkpoint directory or no such tag."""
+        if self.checkpoint_dir is None:
+            return False
+        got = ckpt.restore_checkpoint(self.checkpoint_dir, tag,
+                                      self.block_states)
+        if got is None:
+            return False
+        states, step, extra = got
+        for name, block in self.blocks.items():
+            block.load_state_dict(states[name])
+        self.state.global_step = step
+        for k, default in EXTRA.items():
+            setattr(self.state, k, extra.get(k, default))
+        return True
+
     def train(self, max_steps: Optional[int] = None) -> TrainerState:
         cfg = self.cfg.train
         max_steps = max_steps or cfg.max_steps
@@ -198,11 +255,16 @@ class UnifiedTrainer:
         while self.state.global_step < max_steps:
             self.train_step(batch)
             if cfg.val_freq and self.state.global_step % cfg.val_freq == 0:
-                self.validate()
+                if self.validate().get("best"):
+                    self.save_checkpoint("best")
+            if (cfg.checkpoint_freq
+                    and self.state.global_step % cfg.checkpoint_freq == 0):
+                self.save_checkpoint("last")
             try:
                 batch = next(self.train_iter)
             except StopIteration:
                 break
+        self.save_checkpoint("final")
         for cb in self.callbacks:
             cb.on_train_end(self)
         return self.state

@@ -1,11 +1,99 @@
-"""Training losses (``ttsx/train/losses.py``): the acoustic block's
-``composite_acoustic_loss``, the refiner's ``refiner_loss`` and the
-vocoder GAN's hinge, feature-matching, warmup, energy and R1 terms."""
+"""Training losses (``ttsx/train/losses.py``): the speaker encoder's
+ArcFace and GE2E, the prosody predictor's weighted smooth L1, the
+acoustic block's ``composite_acoustic_loss``, the refiner's
+``refiner_loss`` and the vocoder GAN's hinge, feature-matching, warmup,
+energy and R1 terms."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(
+        1e-8)
+
+
+def arcface_loss(embeddings: torch.Tensor, labels: torch.Tensor,
+                 weight: torch.Tensor, margin: float = 0.3,
+                 scale: float = 30.0) -> torch.Tensor:
+    """Cross entropy of ``scale`` x (cosine to each class's row of
+    ``weight`` [num_classes, D], less ``margin`` on the target class)."""
+    cos = _unit(embeddings) @ _unit(weight).T
+    one_hot = F.one_hot(labels, cos.shape[-1]).to(cos.dtype)
+    return F.cross_entropy((cos - one_hot * margin) * scale, labels)
+
+
+def ge2e_loss(embeddings: torch.Tensor, labels: torch.Tensor,
+              w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Generalized end-to-end loss of a batch grouped by speaker (its
+    groups read from ``labels`` by ``speaker_groups``): the cross entropy
+    of |w| x cosine + b of each utterance against every speaker's
+    centroid, its own speaker's centroid taken without itself. (The
+    reference takes the group count from its caller, whose trainer ties
+    it to the configured micro-batch.)"""
+    n_speakers, m_utts = speaker_groups(labels)
+    e = embeddings.reshape(n_speakers, m_utts, -1)
+    own_centroid = (e.sum(dim=1, keepdim=True) - e) / (m_utts - 1)
+    e_n, c_n = _unit(e), _unit(own_centroid)
+    sim = torch.einsum("imd,kd->imk", e_n, _unit(e.mean(dim=1)))
+    own = (e_n * c_n).sum(dim=-1)
+    same = torch.eye(n_speakers, dtype=torch.bool, device=e.device)
+    sim = torch.where(same[:, None, :], own[:, :, None], sim)
+    logits = (w.abs() * sim + b).reshape(n_speakers * m_utts, n_speakers)
+    labels = torch.arange(n_speakers, device=e.device).repeat_interleave(
+        m_utts)
+    return F.cross_entropy(logits, labels)
+
+
+def speaker_groups(labels: torch.Tensor) -> Tuple[int, int]:
+    """(speakers, utterances each) of a batch grouped by speaker: equal
+    runs of at least two consecutive equal labels, each speaker in one
+    run. Raises ``ValueError`` on any other batch."""
+    lab = labels.detach().cpu().tolist()
+    runs = []
+    for x in lab:
+        if runs and runs[-1][0] == x:
+            runs[-1][1] += 1
+        else:
+            runs.append([x, 1])
+    sizes = {n for _, n in runs}
+    if (len(sizes) != 1 or sizes == {1} or len(runs) < 2
+            or len({x for x, _ in runs}) != len(runs)):
+        raise ValueError(f"GE2E needs a batch grouped by speaker (equal "
+                         f"runs of two or more utterances, one run a "
+                         f"speaker, two speakers or more); labels {lab}")
+    return len(runs), sizes.pop()
+
+
+def _smooth_l1(pred: torch.Tensor, target: torch.Tensor,
+               beta: float = 1.0) -> torch.Tensor:
+    diff = (pred - target).abs()
+    return torch.where(diff < beta, 0.5 * diff ** 2 / beta, diff - 0.5 * beta)
+
+
+def prosody_loss(pred: Dict[str, torch.Tensor],
+                 target: Dict[str, torch.Tensor],
+                 weights: Optional[Dict[str, float]] = None,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weighted smooth L1 (beta 1) over the six prosody outputs; the
+    per-frame ones over the frames of ``mask`` [B, T] when given."""
+    weights = weights or {}
+    total = 0.0
+    for key in ("f0", "energy", "pitch_var"):
+        l = _smooth_l1(pred[key], target[key])
+        if mask is not None:
+            m = mask.to(l.dtype)
+            l = (l * m).sum() / m.sum().clamp_min(1.0)
+        else:
+            l = l.mean()
+        total = total + weights.get(key, 1.0) * l
+    for key in ("speech_rate", "pause_dur", "mfcc"):
+        total = total + weights.get(key, 1.0) * _smooth_l1(
+            pred[key], target[key]).mean()
+    return total
 
 
 def composite_acoustic_loss(out, target_mel: torch.Tensor, w_mel=1.0,

@@ -9,6 +9,15 @@ update the EMA becomes ``d * ema + (1 - d) * params`` of the *new*
 parameters, as the reference's does. Only the vocoder's generator keeps
 one (``VocoderConfig.ema_decay``); the acoustic and refiner blocks run
 without, so they validate on the module itself.
+
+``state_dict`` / ``load_state_dict`` hold everything the reference's
+``TrainState`` pytree holds, as tensors: the update ``step``, the
+module's parameters and buffers (``params``), the optimizer's ``count``
+and Adam moments (``opt``: ``exp_avg`` and ``exp_avg_sq`` of every
+parameter, zeros before the first update, which is what AdamW starts
+from), the ``ema`` when one is kept, and the state of the
+``torch.Generator`` behind ``draws`` (``rng``). Loading them into a
+state built the same way continues the run bit for bit.
 """
 from __future__ import annotations
 
@@ -50,6 +59,45 @@ class TrainState:
                 e = self.ema[n]
                 e.copy_(d * e + (1.0 - d) * p)
         return lr
+
+    def state_dict(self) -> Dict[str, object]:
+        """The state as a nested dict of tensors (live views: copy to keep)."""
+        adamw = self.tx.adamw
+        opt = {"count": torch.tensor(self.tx.count), "exp_avg": {},
+               "exp_avg_sq": {}}
+        for n, p in self.module.named_parameters():
+            st = adamw.state.get(p, {})
+            for k in ("exp_avg", "exp_avg_sq"):
+                opt[k][n] = st[k] if k in st else torch.zeros_like(p)
+        out = {"step": torch.tensor(self.step),
+               "params": dict(self.module.state_dict()), "opt": opt}
+        if self.ema is not None:
+            out["ema"] = dict(self.ema)
+        gen = getattr(self.draws, "gen", None)
+        if gen is not None:
+            out["rng"] = gen.get_state()
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Take a ``state_dict`` of a state built the same way (the
+        checkpoint module has checked its keys and shapes)."""
+        self.module.load_state_dict(state["params"], strict=True)
+        self.step = int(state["step"])
+        opt = state["opt"]
+        self.tx.count = int(opt["count"])
+        adamw = self.tx.adamw
+        for n, p in self.module.named_parameters():
+            # AdamW's own step counter, a CPU float tensor, is the count
+            adamw.state[p] = {
+                "step": torch.tensor(float(self.tx.count)),
+                "exp_avg": opt["exp_avg"][n].to(p.device).clone(),
+                "exp_avg_sq": opt["exp_avg_sq"][n].to(p.device).clone()}
+        if self.ema is not None:
+            for n, e in self.ema.items():
+                e.copy_(state["ema"][n])
+        if "rng" in state:
+            self.draws.gen.set_state(state["rng"])
 
     def eval_params(self, use_ema: bool = True) -> Dict[str, torch.Tensor]:
         """The module's state dict with the EMA in place of the parameters

@@ -17,6 +17,12 @@ that maps to nothing and every module entry no key fills is reported, and
 either raises: a wrong or truncated file cannot load as a partly random
 model.
 
+A trainer's parameter tree nests a model's variables under a name beside
+loose leaves (the speaker encoder's ``{"model": {"params": ...},
+"arcface_w": ...}``, the emotion trainer's two models);
+``from_flax_params`` maps such a tree onto a module whose children carry
+those names, with the same checks.
+
 ``to_flax`` is the inverse: a module's state dict (or another one of the
 same entries, such as an EMA) as a flax tree, each leaf layer converting
 back with ``to_flax_leaves``; parameters go under ``params``, persistent
@@ -118,6 +124,36 @@ def from_flax(module: nn.Module, tree: Mapping) -> Dict[str, torch.Tensor]:
                              f"module shape {tuple(want[k].shape)}")
         state[k] = t
     return state
+
+
+def from_flax_params(module: nn.Module, tree: Mapping
+                     ) -> Dict[str, torch.Tensor]:
+    """State dict of ``module`` from a trainer's params tree: an entry
+    naming a child of ``module`` is that child's flax variables tree
+    (``{"params": ...}``); any other leaf fills ``module``'s own parameter
+    of the same name. Raises as ``from_flax`` does."""
+    out: Dict[str, torch.Tensor] = {}
+    unused = []
+    children = dict(module.named_children())
+    own = dict(module.named_parameters(recurse=False))
+    for key, sub in tree.items():
+        if isinstance(sub, Mapping) and key in children:
+            out.update({f"{key}.{k}": v for k, v in
+                        from_flax(children[key], sub).items()})
+        elif not isinstance(sub, Mapping) and key in own:
+            t = torch.tensor(np.asarray(sub), dtype=own[key].dtype)
+            if t.shape != own[key].shape:
+                raise ValueError(f"{key}: flax shape {tuple(t.shape)} != "
+                                 f"module shape {tuple(own[key].shape)}")
+            out[key] = t
+        else:
+            unused.append(key)
+    missing = sorted(set(module.state_dict()) - set(out))
+    if unused or missing:
+        raise WeightMismatch(
+            f"{type(module).__name__}: keys mapping to no parameter: "
+            f"{unused}; parameters no key fills: {missing}")
+    return out
 
 
 def to_flax(module: nn.Module,
