@@ -143,6 +143,28 @@ Run from the root of a checkout. Phases, one JSON line each:
    first loss within ``XDEV_RTOL`` relative of the CPU's; 3
    ``EmotionTrainer`` steps; ms per predictor forward at 864 frames and
    per step. No kernel launches.
+5f. diarizer: on the hard benchmark stream of
+   ``eval_results/diar_embs.npz`` (81.3 s, 6 speakers, 12 dB SNR, 15
+   overlapped onsets; written to a temporary wav): the zoo's slice
+   encoder (``load_diar_encoder``) embeds the dump's 81 one-second
+   windows on the card within ``DIAR_EMB_TOL`` of the CPU route, unit
+   norm; ``dynamic_slice(wav, AUDIO, 0.8, 3.0)`` on the card and
+   ``_explode`` at 1 s give exactly the dump's 27 slices and 81 windows
+   (the probabilities' distance from the 0.5 and 0.25 thresholds
+   printed); the production controller (``DIAR_PROD``, the zoo encoder)
+   on the card ends ``ok`` with the recorded DER (``DIAR_DER`` strict,
+   ``DIAR_DER_COLLAR`` with a 250 ms collar, to 4 decimals), speakers and
+   segments, and the same segments, speaker partition and overlaps as
+   the CPU route (its step times, run cold and warm, and seconds per
+   second of audio); ``evaluate_dump`` gives ``DIAR_OFFLINE``; the
+   overlap net trained on the card (300 steps, batch 32, ToneCorpus of 6
+   speakers): the first loss within ``OVERLAP_RTOL`` of the CPU route on
+   the same init and batch, every loss finite, held-out accuracy at
+   least ``OVERLAP_MIN_ACC`` (the reference's 0.980 beside it), then the
+   screened controller once (DER, screen calls, the overlap step's
+   time); 5 ``GNNClusterer.train`` steps (margin ``GNN_MARGIN``) on the
+   dump's embeddings with spectral labels, card and CPU, each loss
+   within ``GNN_RTOL``. No kernel launches.
 6. timing: CUDA-event times of each kernel beside its plain version (K1
    and K2 at the stage shapes above; K3 by graph replay, eager beside, at
    each batch shape the trainer collated and at the 10 s clip, with the
@@ -274,6 +296,28 @@ PROSODY_BATCH = 4       # utterances (4 speakers) at each length, so that
                         # utterance's pause share read 1.8e-4 relative
                         # (near 0) in chip run 1, PR 14
 STAGE12_STEPS = 3       # train steps of each stage-1/2 trainer
+# phase 5f, the diarizer, on eval_results/diar_embs.npz (the hard stream)
+DIAR_EMB_TOL = 1e-5     # max |slice embedding(card) - embedding(CPU)|
+DIAR_PROD = dict(min_dur=0.8, max_dur=3.0, cluster_method="spectral",
+                 subsegment_s=1.0, cluster_merge_thresh=0.75)
+# the production controller (ttsx/eval/parity_diar.py:127-132) with the
+# zoo's diar_encoder.npz on the dump's stream: parity_diar.json
+# diarizer_hard.trained, which ttsx reproduces on the CPU to every digit;
+# strict and 250 ms-collar DER (overlap speakers included), speakers,
+# segments
+DIAR_DER, DIAR_DER_COLLAR = 0.27676, 0.17144
+DIAR_SPEAKERS, DIAR_SEGMENTS = 5, 60
+# evaluate_dump on the dump (numpy: the same on any machine)
+DIAR_OFFLINE = {"der": 0.1685, "der_collar": 0.0416, "k": 5, "k_true": 6,
+                "n_segs": 58}
+OVERLAP_STEPS, OVERLAP_BATCH = 300, 32   # as scripts/dump_diar_embs.py
+OVERLAP_RTOL = 1e-5     # first overlap-net loss, card vs CPU, same batch
+OVERLAP_MIN_ACC = 0.90  # held-out window accuracy after training
+OVERLAP_REF_ACC = 0.980  # parity_diar.json overlap_window_eval (reference)
+GNN_STEPS = 5
+GNN_MARGIN = 2.0        # the default 0.3 leaves most of the 5 steps at
+                        # zero loss on these well-separated embeddings
+GNN_RTOL = 1e-5         # triplet loss per step, card vs CPU
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -2094,6 +2138,209 @@ def prosody_phase(seed: int):
     return fields
 
 
+def diar_der(res, truth):
+    """(strict DER, 250 ms-collar DER) of a controller result, its
+    overlap regions scored with both speakers (parity_diar.py:134-140)."""
+    from ttsx_torch.eval.metrics import diarization_error_rate
+    hyp = [(s, e, spk) for (s, e), spk in zip(res["slices"], res["speakers"])]
+    hyp += [(s, e, spk) for s, e, sa, sb, _c in res["overlap_speakers"]
+            for spk in (sa, sb)]
+    return (diarization_error_rate(truth, hyp),
+            diarization_error_rate(truth, hyp, collar=0.25))
+
+
+def partition(speakers):
+    """Speaker names -> indices in order of first appearance."""
+    first = {}
+    return [first.setdefault(s, len(first)) for s in speakers]
+
+
+def diarize(ctl, wav_path: str, out: Path):
+    """(result, seconds, step_times) of one ``diarize_single``; fails
+    unless the job's log says ``ok`` and the result holds segments."""
+    t1 = time.perf_counter()
+    res = ctl.diarize_single(wav_path, str(out))
+    sec = time.perf_counter() - t1
+    status = json.loads((out / "diarization_log.json").read_text())
+    if status.get("status") != "ok" or not res or not res["slices"]:
+        fail(f"diarize_single failed: {status}")
+    return res, sec, json.loads((out / "step_times.json").read_text())
+
+
+def diarizer_phase(seed: int, workdir: Path):
+    """Phase 5f (see the module docstring). Returns its fields."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from ttsx_torch import ops
+    from ttsx_torch.data.dataset import write_wav
+    from ttsx_torch.data.tonecorpus import ToneCorpus
+    from ttsx_torch.pipeline.diarizer.cluster import spectral_cluster
+    from ttsx_torch.pipeline.diarizer.controller import DiarizerController
+    from ttsx_torch.pipeline.diarizer.gnn import GNNClusterer
+    from ttsx_torch.pipeline.diarizer.offline import evaluate_dump
+    from ttsx_torch.pipeline.diarizer.overlap_net import (
+        OverlapScreen, init_overlap_net, make_overlap_windows,
+        train_overlap_net)
+    from ttsx_torch.pipeline.diarizer.slicer import (dynamic_slice,
+                                                     vad_probabilities)
+    from ttsx_torch.zoo import AUDIO, DEFAULT_ZOO, load_diar_encoder
+    dump_path = DEFAULT_ZOO.parent / "diar_embs.npz"
+    D = np.load(dump_path, allow_pickle=True)
+    wav = D["wav"]
+    truth = [(float(s), float(e), str(k)) for s, e, k in
+             zip(D["truth_start"], D["truth_end"], D["truth_spk"])]
+    wins = [tuple(w) for w in D["win_plain"]]
+    audio_s = len(wav) / AUDIO.sample_rate
+    wav_path = workdir / "dialogue_hard.wav"
+    write_wav(wav_path, wav.astype(np.float32), AUDIO.sample_rate)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+
+    # the zoo's slice encoder on the dump's 81 windows, card vs CPU
+    card, cpu = load_diar_encoder(device="cuda"), load_diar_encoder(
+        device="cpu")
+    e_card, e_cpu = card.extract(wav, wins), cpu.extract(wav, wins)
+    t1 = time.perf_counter()
+    card.extract(wav, wins)
+    embed_s = time.perf_counter() - t1
+    emb_err = float(np.abs(e_card - e_cpu).max())
+    norm_err = float(np.abs(np.linalg.norm(e_card, axis=1) - 1.0).max())
+
+    # the VAD slicer on the card against the dump's slices and windows
+    p_card = vad_probabilities(wav, AUDIO, device="cuda")
+    p_cpu = vad_probabilities(wav, AUDIO, device="cpu")
+    slices, _ = dynamic_slice(wav, AUDIO, DIAR_PROD["min_dur"],
+                              DIAR_PROD["max_dur"], device="cuda")
+    card_wins = DiarizerController(AUDIO, subsegment_s=1.0,
+                                   device="cuda")._explode(slices)
+    slicer = dict(
+        n_slices=len(slices), n_windows=len(card_wins),
+        equal_dump_slices=bool(np.array_equal(np.asarray(slices),
+                                              D["slices_raw"])),
+        equal_dump_windows=bool(np.array_equal(np.asarray(card_wins),
+                                               D["win_plain"])),
+        prob_max_abs_diff_card_vs_cpu=float(np.abs(p_card - p_cpu).max()),
+        margin_prob_thresh=float(np.abs(p_card - 0.5).min()),
+        margin_snap_thresh=float(np.abs(p_card - 0.25).min()))
+
+    # the production controller with the zoo encoder, card and CPU
+    runs = {}
+    for name, dev, enc in (("card", "cuda", card), ("card_warm", "cuda", card),
+                           ("cpu", "cpu", cpu)):
+        ctl = DiarizerController(AUDIO, embedder=enc, device=dev, **DIAR_PROD)
+        res, sec, steps = diarize(ctl, str(wav_path), workdir / name)
+        der, der_c = diar_der(res, truth)
+        runs[name] = dict(res=res, seconds=sec, step_times=steps, der=der,
+                          der_collar=der_c)
+    got, ref = runs["card"], runs["cpu"]
+    controller = {k: dict(seconds=v["seconds"],
+                          s_per_audio_s=v["seconds"] / audio_s,
+                          step_times=v["step_times"], der=v["der"],
+                          der_collar=v["der_collar"],
+                          n_speakers=len(set(v["res"]["speakers"])),
+                          n_segments=len(v["res"]["slices"]))
+                  for k, v in runs.items()}
+    same_as_cpu = (got["res"]["slices"] == ref["res"]["slices"]
+                   and partition(got["res"]["speakers"])
+                   == partition(ref["res"]["speakers"])
+                   and got["res"]["overlaps"] == ref["res"]["overlaps"])
+    offline = evaluate_dump(str(dump_path))
+
+    # the learned overlap screen, trained on the card
+    corpus = ToneCorpus(n_speakers=6, audio=AUDIO, seed=0)
+    t1 = time.perf_counter()
+    net = train_overlap_net(corpus, AUDIO, steps=OVERLAP_STEPS,
+                            batch=OVERLAP_BATCH, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    overlap_train_s = time.perf_counter() - t1
+    X, y = make_overlap_windows(corpus, AUDIO, 256, seed=0, device="cuda")
+    idx = np.random.default_rng(0).integers(0, len(X), OVERLAP_BATCH)
+    with torch.no_grad():
+        first_cpu = float(F.binary_cross_entropy_with_logits(
+            init_overlap_net(AUDIO, 0, device="cpu")(torch.as_tensor(X[idx])),
+            torch.as_tensor(y[idx])))
+    losses = net["losses"]
+    screen = OverlapScreen(AUDIO, net["params"], device="cuda")
+    calls = [0]
+
+    def counted(w):
+        calls[0] += 1
+        return screen(w)
+
+    ctl = DiarizerController(AUDIO, embedder=card, overlap_screen=counted,
+                             device="cuda", **DIAR_PROD)
+    res_s, sec_s, steps_s = diarize(ctl, str(wav_path), workdir / "screened")
+    der_s = diar_der(res_s, truth)
+
+    # the GNN clusterer's triplet steps, card vs CPU
+    labels = spectral_cluster(D["emb_plain"])
+    gnn = {}
+    for dev in ("cuda", "cpu"):
+        g = GNNClusterer(seed=seed)
+        g.train(D["emb_plain"], labels, margin=GNN_MARGIN, steps=GNN_STEPS,
+                device=dev)
+        gnn[dev] = g.losses
+    gnn_rel = max(abs(a - b) / max(abs(b), 1e-12)
+                  for a, b in zip(gnn["cuda"], gnn["cpu"]))
+    launches = ops.launch_counts()
+
+    fields = dict(
+        audio_s=audio_s,
+        embedder=dict(windows=len(wins), dim=int(e_card.shape[1]),
+                      max_abs_diff_card_vs_cpu=emb_err, tolerance=DIAR_EMB_TOL,
+                      max_norm_err=norm_err, extract_81_windows_s=embed_s),
+        slicer=slicer,
+        controller=controller, controller_same_as_cpu=same_as_cpu,
+        recorded=dict(der=DIAR_DER, der_collar=DIAR_DER_COLLAR,
+                      n_speakers=DIAR_SPEAKERS, n_segments=DIAR_SEGMENTS),
+        offline=offline,
+        overlap_net=dict(steps=OVERLAP_STEPS, batch=OVERLAP_BATCH,
+                         train_s=overlap_train_s, first_loss=losses[0],
+                         first_loss_cpu=first_cpu,
+                         first_loss_rel_err=abs(losses[0] - first_cpu)
+                         / abs(first_cpu),
+                         last_loss=losses[-1], eval=net["eval"],
+                         train_acc=net["train_acc"],
+                         reference_eval_acc=OVERLAP_REF_ACC),
+        screened=dict(der=der_s[0], der_collar=der_s[1],
+                      seconds=sec_s, step_times=steps_s,
+                      screen_calls=calls[0],
+                      overlap_step_ms_per_call=1e3 * steps_s["overlap"]
+                      / max(calls[0], 1),
+                      n_speakers=len(set(res_s["speakers"])),
+                      n_overlaps=len(res_s["overlaps"])),
+        gnn=dict(steps=GNN_STEPS, margin=GNN_MARGIN, losses_card=gnn["cuda"],
+                 losses_cpu=gnn["cpu"], max_rel_err=gnn_rel),
+        launches=launches)
+    if not emb_err <= DIAR_EMB_TOL or not norm_err <= 1e-5:
+        fail(f"slice embeddings card vs CPU {emb_err}, norm error {norm_err}")
+    if not (slicer["equal_dump_slices"] and slicer["equal_dump_windows"]):
+        fail(f"the card's slices differ from the dump's: {slicer}")
+    c = controller["card"]
+    if (round(c["der"], 4), round(c["der_collar"], 4)) != (
+            round(DIAR_DER, 4), round(DIAR_DER_COLLAR, 4)) or (
+            c["n_speakers"], c["n_segments"]) != (DIAR_SPEAKERS,
+                                                   DIAR_SEGMENTS):
+        fail(f"production controller on the card: {c}")
+    if not same_as_cpu:
+        fail("the card's segments, partition or overlaps differ from the "
+             "CPU route's")
+    if offline != DIAR_OFFLINE:
+        fail(f"evaluate_dump gives {offline}, want {DIAR_OFFLINE}")
+    if not fields["overlap_net"]["first_loss_rel_err"] <= OVERLAP_RTOL:
+        fail(f"overlap net first loss card {losses[0]} vs CPU {first_cpu}")
+    if not np.isfinite(losses).all():
+        fail(f"overlap net losses not finite: {losses}")
+    if not net["eval"]["acc"] >= OVERLAP_MIN_ACC:
+        fail(f"overlap net held-out accuracy {net['eval']}")
+    if not gnn_rel <= GNN_RTOL:
+        fail(f"GNN losses card {gnn['cuda']} vs CPU {gnn['cpu']}")
+    if any(launches.values()):
+        fail(f"the diarizer launched a kernel: {launches}")
+    return fields
+
+
 def time_gan(voc, batch):
     """ms of the vocoder's disc_step with R1 and without and of its
     gen_step, plain and with ``remat`` (each FiLM residual block
@@ -2322,6 +2569,11 @@ def main(argv=None) -> int:
     # -- 5e. stage 2, the zoo's prosody predictor and the emotion head
     t0 = time.time()
     emit("prosody", t0, **prosody_phase(args.seed))
+
+    # -- 5f. the speaker diarizer on the hard benchmark stream
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        emit("diarizer", t0, **diarizer_phase(args.seed, Path(tmp)))
 
     # -- 6. timing: K3 at each batch shape the trainer collated (the
     # largest first) and at the clip, K1 and K2 at the stage shapes of

@@ -7,12 +7,16 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity_helpers import one_torch_thread  # noqa: F401 (a fixture)
 from torch_train_helpers import (JaxDraws, batch_of, close_metrics, gan_cfg,
                                  jax_cfg, seed_block_init, tiny_cfg)
 
 from ttsx_torch.core import config as tc
 from ttsx_torch.nn.draws import ReplayDraws
 from ttsx_torch.weights import load_flax
+
+# torch on one thread: six workers share the cores (torch_parity_helpers)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 # -------------------------------------------------------------------- engine

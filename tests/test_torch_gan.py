@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity_helpers import one_torch_thread  # noqa: F401 (a fixture)
 from torch_parity_helpers import init_like, randn, to_numpy
 from torch_train_helpers import (JaxDraws, TINY_VOCODER, _numpy,
                                  close_metrics, close_tree, gan_cfg, jax_cfg,
@@ -26,6 +27,9 @@ from torch_train_helpers import (JaxDraws, TINY_VOCODER, _numpy,
 
 from ttsx_torch.nn.draws import ReplayDraws
 from ttsx_torch.weights import from_flax, load_flax
+
+# torch on one thread: six workers share the cores (torch_parity_helpers)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 OUT_TOL = dict(rtol=1e-5, atol=1e-6)
 MU_TOL = dict(rtol=1e-4, atol=2e-8)

@@ -6,12 +6,15 @@ are forward-only, also refuse a call that needs a gradient, and a
 kernel-flagged generator under a gradient raises); the zoo's speaker
 encoder and prosody predictor on the card against the CPU, and a
 checkpoint of the three train blocks round-tripped on the card and onto
-the CPU.
+the CPU; the diarizer's zoo slice encoder on the card against the CPU,
+its production controller end to end on the card, and batch mode with 2
+workers on the card.
 
-Each test skips without a card, but one: the stage 1 and 2 entry points
-(trainers, zoo loaders, datasets and corpus features) refuse to run
-without a card unless the CPU is asked for, which runs where there is
-none. This file imports neither JAX nor the
+Each test skips without a card, but two: the stage 1 and 2 entry points
+(trainers, zoo loaders, datasets and corpus features) and the diarizer's
+(slicer, embedder, overlap net and screen, GNN training, controller,
+zoo loader, CLI) refuse to run without a card unless the CPU is asked
+for, which runs where there is none. This file imports neither JAX nor the
 JAX package, so on a machine without JAX it runs on its own:
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
@@ -668,3 +671,113 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     cpu = UnifiedTrainer(cfg, [], device="cpu", checkpoint_dir=str(tmp_path))
     with pytest.raises(CheckpointMismatch, match="rng"):
         cpu.restore_checkpoint("last")
+
+
+# ------------------------------------------------------------- diarizer
+DIAR_PROD = dict(min_dur=0.8, max_dur=3.0, cluster_method="spectral",
+                 subsegment_s=1.0, cluster_merge_thresh=0.75)
+
+
+def _dump():
+    from ttsx_torch.zoo import DEFAULT_ZOO
+    return np.load(DEFAULT_ZOO.parent / "diar_embs.npz", allow_pickle=True)
+
+
+def test_diarizer_entry_points_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA card")
+    from ttsx_torch.cli.main import main_diarize
+    from ttsx_torch.data.tonecorpus import ToneCorpus
+    from ttsx_torch.pipeline.diarizer import (DiarizerController,
+                                              GNNClusterer, SliceEmbedder)
+    from ttsx_torch.pipeline.diarizer.overlap import detect_overlaps
+    from ttsx_torch.pipeline.diarizer.overlap_net import (
+        OverlapScreen, OverlapNet, train_overlap_net)
+    from ttsx_torch.pipeline.diarizer.slicer import (dynamic_slice,
+                                                     vad_probabilities)
+    from ttsx_torch.zoo import load_diar_encoder
+    au = AudioConfig()
+    wav = np.zeros(22050, np.float32)
+    e = np.eye(4, dtype=np.float32)
+    for call in (lambda: vad_probabilities(wav, au),
+                 lambda: dynamic_slice(wav, au), SliceEmbedder,
+                 load_diar_encoder, DiarizerController,
+                 lambda: train_overlap_net(ToneCorpus(n_speakers=2), au,
+                                           steps=1, n_train=1),
+                 lambda: OverlapScreen(au, OverlapNet().state_dict()),
+                 lambda: GNNClusterer().train(e, np.array([0, 0, 1, 1])),
+                 lambda: detect_overlaps(wav, au, [(0.0, 0.4), (0.5, 1.0)],
+                                         np.array([0, 1]), e[:2]),
+                 lambda: main_diarize(["x.wav", "--output-dir",
+                                       str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+def test_diarizer_embedder_card_matches_cpu(cuda):
+    """The zoo's slice encoder on the dump's 81 windows, card vs CPU."""
+    from ttsx_torch.zoo import load_diar_encoder
+    d = _dump()
+    wins = [tuple(w) for w in d["win_plain"]]
+    got = load_diar_encoder(device="cuda").extract(d["wav"], wins)
+    want = load_diar_encoder(device="cpu").extract(d["wav"], wins)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-5)
+
+
+def _diar_truth(d):
+    return [(float(s), float(e), str(k)) for s, e, k in
+            zip(d["truth_start"], d["truth_end"], d["truth_spk"])]
+
+
+def test_diarizer_controller_on_card(cuda, tmp_path):
+    """The production controller with the zoo encoder on the card, on the
+    dump's stream: status ok, the recorded DER (0.27676 strict, 0.17144
+    with a 250 ms collar), 5 speakers and 60 segments."""
+    import json
+    from ttsx_torch.data.dataset import write_wav
+    from ttsx_torch.eval.metrics import diarization_error_rate
+    from ttsx_torch.pipeline.diarizer import DiarizerController
+    from ttsx_torch.zoo import AUDIO, load_diar_encoder
+    d = _dump()
+    wp = tmp_path / "hard.wav"
+    write_wav(wp, d["wav"].astype(np.float32), AUDIO.sample_rate)
+    ctl = DiarizerController(AUDIO, embedder=load_diar_encoder(),
+                             **DIAR_PROD)
+    res = ctl.diarize_single(str(wp), str(tmp_path / "out"))
+    log = json.loads((tmp_path / "out/diarization_log.json").read_text())
+    assert log["status"] == "ok" and res
+    hyp = [(s, e, k) for (s, e), k in zip(res["slices"], res["speakers"])]
+    hyp += [(s, e, k) for s, e, a, b, _c in res["overlap_speakers"]
+            for k in (a, b)]
+    truth = _diar_truth(d)
+    assert round(diarization_error_rate(truth, hyp), 5) == 0.27676
+    assert round(diarization_error_rate(truth, hyp, collar=0.25),
+                 5) == 0.17144
+    assert len(set(res["speakers"])) == 5 and len(res["slices"]) == 60
+
+
+def test_diarizer_batch_two_workers_on_card(cuda, tmp_path):
+    """Batch mode, 2 worker threads sharing the zoo embedder and the ReID
+    memory on the card: both jobs (two 20 s parts of the stream) end ok
+    with segments."""
+    import json
+    from ttsx_torch.data.dataset import write_wav
+    from ttsx_torch.pipeline.diarizer import DiarizerController
+    from ttsx_torch.zoo import AUDIO, load_diar_encoder
+    d = _dump()
+    sr = AUDIO.sample_rate
+    paths = []
+    for i, start in enumerate((0, 40)):
+        p = tmp_path / f"part{i}.wav"
+        write_wav(p, d["wav"][start * sr:(start + 20) * sr].astype(
+            np.float32), sr)
+        paths.append(str(p))
+    ctl = DiarizerController(AUDIO, embedder=load_diar_encoder(),
+                             **DIAR_PROD)
+    res = ctl.diarize_batch(paths, str(tmp_path / "out"), workers=2)
+    assert sorted(res) == ["part0", "part1"]
+    for job, r in res.items():
+        log = json.loads((tmp_path / "out" / job /
+                          "diarization_log.json").read_text())
+        assert log["status"] == "ok" and r and r["slices"], job

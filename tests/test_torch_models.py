@@ -17,9 +17,13 @@ import jax
 import numpy as np
 import pytest
 
+from torch_parity_helpers import one_torch_thread  # noqa: F401 (a fixture)
 from torch_parity_helpers import close, init_like, perturb, port, randn, t
 
 from ttsx_torch.core import config as tc
+
+# torch on one thread: six workers share the cores (torch_parity_helpers)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _tiny_cfg() -> tc.TTSXConfig:

@@ -29,6 +29,7 @@ sys.meta_path.insert(0, Block())
 import ttsx_torch
 names = [m.name for m in pkgutil.walk_packages(ttsx_torch.__path__,
                                                "ttsx_torch.")]
+assert "ttsx_torch.pipeline.diarizer.controller" in names
 for n in names:
     importlib.import_module(n)
 import chip_smoke

@@ -22,10 +22,14 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity_helpers import one_torch_thread  # noqa: F401 (a fixture)
 from torch_parity_helpers import close, init_like, port, randn, t
 from torch_train_helpers import jax_cfg, tiny_cfg
 
 from ttsx_torch.core import config as tc
+
+# torch on one thread: six workers share the cores (torch_parity_helpers)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MEL_TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -25,10 +25,14 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity_helpers import one_torch_thread  # noqa: F401 (a fixture)
 from torch_parity_helpers import close, init_like, port, randn, t
 from torch_train_helpers import jax_cfg
 
 from ttsx_torch.core import config as tc
+
+# torch on one thread: six workers share the cores (torch_parity_helpers)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 B, T = 2, 12
 LENS = (12, 9)

@@ -6,12 +6,16 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity_helpers import one_torch_thread  # noqa: F401 (a fixture)
 from torch_train_helpers import (JaxDraws, _numpy, batch_of, block_pair,
                                  check_grads, check_params_after_adam,
                                  close_metrics, close_tree, tiny_cfg)
 
 from ttsx_torch.nn.draws import ReplayDraws
 from ttsx_torch.weights import from_flax
+
+# torch on one thread: six workers share the cores (torch_parity_helpers)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 # ----------------------------------------------------------------- optimizer

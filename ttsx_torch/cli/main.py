@@ -1,6 +1,7 @@
 """The port's command lines (``ttsx/cli/main.py``): ``main_train``, the
 acoustic, refiner and vocoder GAN trainer on a wav tree or on synthetic
-batches, and ``main_synth``, text -> waveform.
+batches, ``main_synth``, text -> waveform, and ``main_diarize``, the
+speaker diarizer.
 
     python -m ttsx_torch.cli.main --data-root DIR [--max-steps N]
         [--config cfg.json] [--output-dir out] [--device cuda|cpu]
@@ -39,6 +40,21 @@ reference restores the engine's block states into the pipeline's
 parameter tree, a different tree, which raises. ``--output-dir`` is
 accepted as the reference's common flag and, as there, not used by
 synthesis.
+
+    python -m ttsx_torch.cli.diarize WAV [WAV ...] [--output-dir out]
+        [--streaming] [--eval REF.rttm] [--snapshot mem.pkl]
+        [--workers N] [--device cuda|cpu]
+
+``main_diarize`` (as the reference's ``ttsx-diarize``) builds the
+reference CLI's controller (default ``DiarizerController``: an untrained
+slice encoder, modularity clustering) on ``--device``, with a ReID
+memory loaded from and saved back to ``--snapshot``, and diarizes one
+wav into ``--output-dir`` or several in batch mode (``--workers``
+threads, each job under ``--output-dir``/<job id>). ``--eval`` prints
+the DER and purity of the first wav's RTTM against a reference RTTM (in
+batch mode the RTTM in that job's directory; the reference reads the
+top directory there, where batch mode writes none). It returns 0 when a
+job succeeded.
 """
 from __future__ import annotations
 
@@ -188,6 +204,54 @@ def main_synth(argv=None) -> int:
     print(json.dumps({"wav": args.out, "samples": int(wav.shape[1]),
                       "seconds": wav.shape[1] / cfg.vocoder.sr, **loaded}))
     return 0
+
+
+
+def main_diarize(argv=None) -> int:
+    p = argparse.ArgumentParser("ttsx-torch-diarize")
+    p.add_argument("wavs", nargs="+")
+    p.add_argument("--streaming", action="store_true")
+    p.add_argument("--eval", dest="eval_rttm",
+                   help="reference RTTM for DER/purity")
+    p.add_argument("--snapshot", help="ReID memory snapshot to load/save")
+    p.add_argument("--workers", type=int, default=4,
+                   help="thread-pool size for batch mode")
+    p.add_argument("--output-dir", default="./output")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    import logging
+    from ttsx_torch.core.device import resolve_device, set_f32_numerics
+    from ttsx_torch.pipeline.diarizer import DiarizerController, ReIDMemory
+    from ttsx_torch.pipeline.diarizer.controller import job_ids
+    from ttsx_torch.utils.logs import attach_rotating_handler
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        set_f32_numerics()
+    attach_rotating_handler(logging.getLogger("ttsx_torch.diarizer"),
+                            Path(args.output_dir) / "diarizer.log")
+    memory = ReIDMemory()
+    if args.snapshot and Path(args.snapshot).exists():
+        memory.load_snapshot(args.snapshot)
+    ctl = DiarizerController(memory=memory, device=device)
+    batch = len(args.wavs) > 1
+    if not batch:
+        res = ctl.diarize_single(args.wavs[0], args.output_dir,
+                                 streaming=args.streaming)
+        ok = bool(res)
+    else:
+        res = ctl.diarize_batch(args.wavs, args.output_dir,
+                                workers=args.workers)
+        ok = any(res.values())
+    if args.snapshot:
+        memory.snapshot(args.snapshot)
+    if args.eval_rttm:
+        job_dir = Path(args.output_dir)
+        if batch:
+            job_dir = job_dir / job_ids(args.wavs)[0]
+        hyp = job_dir / f"{Path(args.wavs[0]).stem}.rttm"
+        print(json.dumps(ctl.evaluate(args.eval_rttm, str(hyp))))
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

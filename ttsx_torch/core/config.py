@@ -4,8 +4,8 @@ A stdlib-only copy of the part of ``ttsx.core.config`` that synthesis and
 the trainers read: ``AudioConfig``, ``S4Config``, ``RefEncConfig`` (the
 speaker encoder), ``ProsodyConfig`` (the prosody predictor),
 ``AcousticConfig``, ``RefinerConfig``, ``VocoderConfig``, ``NovelConfig``,
-``TrainConfig`` and a ``TTSXConfig`` root holding the synthesis chain's
-and its trainers'. Field
+``TrainConfig``, a ``TTSXConfig`` root holding the synthesis chain's
+and its trainers', and ``DiarizerConfig`` (the speaker diarizer). Field
 names and defaults are the reference's, so a dict written by
 ``ttsx.core.config.to_dict`` loads here through ``from_dict`` (keys this
 tree does not carry are ignored) and back.
@@ -242,6 +242,29 @@ class TTSXConfig:
     refiner: RefinerConfig = field(default_factory=RefinerConfig)
     vocoder: VocoderConfig = field(default_factory=VocoderConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+
+
+@dataclass(frozen=True)
+class DiarizerConfig:
+    """The speaker diarizer (``ttsx.core.config.DiarizerConfig``)."""
+    min_slice_dur: float = 1.5
+    max_slice_dur: float = 6.0
+    prob_thresh: float = 0.5
+    merge_gap: float = 0.2
+    pad: float = 0.1
+    snr_db: float = 5.0
+    overlap_sim_thresh: float = 0.5
+    voiceprint_thresh: float = 0.6     # ReID match threshold
+    memory_size: int = 10
+    chunk_s: float = 60.0
+    long_audio_s: float = 3600.0
+    certainty_floor: float = 0.7
+    cluster_method: str = "modularity"  # modularity | kmeans | spectral
+    # post-cluster prototype-cosine merge threshold (<= 0 disables)
+    cluster_merge_thresh: float = 0.75
+    embed_dim: int = 192
+    batch_size: int = 1
+    dtype: str = "float32"
 
 
 def to_dict(cfg: Any) -> Any:

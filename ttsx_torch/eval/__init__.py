@@ -1,1 +1,2 @@
-"""Evaluation metrics of the port (``ttsx/eval``); only the EER so far."""
+"""Evaluation metrics of the port (``ttsx/eval``): the EER and the
+diarizer's DER, purity and silhouette."""

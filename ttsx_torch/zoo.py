@@ -15,6 +15,12 @@ with (the export's ``_meta`` and the training harness's settings, on
 weights and its module, on ``device``. ``load_refenc`` takes the loss
 head (ArcFace or GE2E) from the leaves the export holds; the reference
 takes the config's default, so a GE2E export does not load there.
+
+``load_diar_encoder`` rebuilds the diarizer's slice encoder from
+``diar_encoder.npz`` (ECAPA width, speaker_dim and speaker count from
+its ``_meta``, on ``AUDIO``) and returns a ready ``SliceEmbedder`` on
+``device``. Like the other loaders it raises on a missing export (the
+reference returns None).
 """
 from __future__ import annotations
 
@@ -121,3 +127,25 @@ def load_prosody(zoo_dir: Optional[str] = None, device="cuda"):
     trainer = ProsodyTrainer(cfg, device=device)
     load_flax(trainer.model, tree)
     return trainer, trainer.model
+
+
+def load_diar_encoder(zoo_dir: Optional[str] = None, device="cuda"):
+    """The trained hard-diarizer slice encoder from ``diar_encoder.npz``
+    -> a ``SliceEmbedder`` on ``device`` holding it (the export's tree is
+    the trainer's ``model`` entry, saved under the name ``refenc``)."""
+    from ttsx_torch.pipeline.diarizer.embedding import SliceEmbedder
+    from ttsx_torch.weights import load_slim_npz
+    path = (Path(zoo_dir) if zoo_dir else DEFAULT_ZOO) / "diar_encoder.npz"
+    if not path.exists():
+        raise FileNotFoundError(f"no diarizer encoder export at {path}")
+    trees = load_slim_npz(str(path))
+    meta = trees.get("_meta", {})
+    cfg = RefEncConfig(
+        audio=AUDIO,
+        speaker_dim=int(meta.get("speaker_dim", 192)),
+        ecapa_channels=int(meta.get("ecapa_channels", 256)),
+        num_speakers=int(meta.get("num_speakers", 6)))
+    emb = SliceEmbedder(AUDIO, cfg=cfg, params=trees["refenc"],
+                        device=device)
+    emb._ensure_model()     # load now: a bad export raises here
+    return emb
