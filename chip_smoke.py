@@ -165,6 +165,25 @@ Run from the root of a checkout. Phases, one JSON line each:
    time); 5 ``GNNClusterer.train`` steps (margin ``GNN_MARGIN``) on the
    dump's embeddings with spectral labels, card and CPU, each loss
    within ``GNN_RTOL``. No kernel launches.
+5g. observer: the observer ingestion job (``ObserverPipeline.run_job``)
+   on 5f's stream: 5f's production controller with the zoo's slice
+   encoder, the zoo's prosody predictor (``load_prosody``, its own
+   config), and an ``ASRService`` whose ``ScriptedText`` transcriber
+   fills the energy VAD's segments with fixed sentences. On the card, run
+   cold and then warm: status ``done``, every stage ``ok``, 5f's
+   speakers and segments, ``device_bytes_in_use`` above 0 in every
+   resource snapshot; the same job on the CPU in this process: the same
+   speakers, transcripts, tier-1 and tier-2 labels and statuses, arc
+   pattern and plot-map beats, and ``prosody_trend.json`` within
+   ``OBSERVER_TREND_TOL``, with the smallest margin of each decision
+   printed (energy VAD, voicing, the f0 peak pick, drift's k-sigma test,
+   tier 2's confidence thresholds). Then ``watch`` on a temporary inbox:
+   a ``<stem>.wav`` and its ``.ready`` marker end ``done`` within
+   ``OBSERVER_WATCH_S`` (the watcher and worker stopped and SIGINT's and
+   SIGTERM's handlers put back after it), and ``main_observer --job
+   --device cuda`` once in this process returns 0 with a ``done``
+   summary. The job's seconds (cold, warm, per second of audio), its
+   step times, and the watch round trip. No kernel launches.
 6. timing: CUDA-event times of each kernel beside its plain version (K1
    and K2 at the stage shapes above; K3 by graph replay, eager beside, at
    each batch shape the trainer collated and at the 10 s clip, with the
@@ -318,6 +337,14 @@ GNN_STEPS = 5
 GNN_MARGIN = 2.0        # the default 0.3 leaves most of the 5 steps at
                         # zero loss on these well-separated embeddings
 GNN_RTOL = 1e-5         # triplet loss per step, card vs CPU
+# phase 5g, the observer job on the same stream: prosody_trend.json card
+# vs CPU. f0 within one 0.01 rounding step (f32 autocorrelation peaks),
+# energy one 1e-5 step; the predictor's outputs within PROSODY_RTOL of
+# their largest CPU magnitude (5e's gate) plus their rounding step
+OBSERVER_TREND_TOL = {"f0": 0.01, "energy": 1e-5}
+OBSERVER_MODEL_STEP = {"model_f0": 0.01, "mfcc": 1e-3, "speech_rate": 0.0,
+                       "pause_dur": 0.0}
+OBSERVER_WATCH_S = 120  # a marker's job must be done within this
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -2341,6 +2368,242 @@ def diarizer_phase(seed: int, workdir: Path):
     return fields
 
 
+class Names:
+    """``uuid.uuid4`` stand-in (speakers are named from it): 1, 2, ... as
+    hex, so that two runs of one job name their speakers alike."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __call__(self):
+        self.n += 1
+        return type("U", (), {"hex": f"{self.n:08x}"})()
+
+
+def read_tree(root: Path) -> dict:
+    """{relative path: parsed JSON} of a job's JSON artifacts."""
+    return {str(p.relative_to(root)): json.loads(p.read_text())
+            for p in sorted(root.rglob("*.json"))}
+
+
+def job_margins(out: Path, speakers, audio) -> dict:
+    """The smallest margin of each decision of an observer job on the
+    card, from its per-speaker wavs and artifacts: energy VAD (frame RMS
+    over the loudest frame against 0.02), voicing (the autocorrelation
+    peak against 0.3, frame energy against 1e-3), the f0 peak pick (the
+    best lag's autocorrelation over the next best's in the band, voiced
+    frames), drift's k-sigma test (|smoothed delta| against its
+    threshold, relative to it) and tier 2's confidences against 0.90
+    and 0.65."""
+    import numpy as np
+    import torch
+    from ttsx_torch.data.dataset import read_wav
+    from ttsx_torch.dsp.stft import frame_signal
+    from ttsx_torch.pipeline.drift import savgol_smooth
+    m = {k: math.inf for k in ("vad", "peak", "energy", "lag_gap",
+                               "drift", "tier2_conf")}
+    for spk in speakers:
+        wav, _ = read_wav(out / "speakers" / f"{spk}.wav",
+                          audio.sample_rate)
+        x = torch.as_tensor(wav[None], device="cuda")
+        fr = frame_signal(x, audio.win_length, audio.hop_length)
+        rms = torch.sqrt((fr ** 2).mean(-1) + 1e-10)[0]
+        m["vad"] = min(m["vad"], float((rms / rms.max().clamp_min(1e-6)
+                                        - 0.02).abs().min()))
+        fr = fr - fr.mean(-1, keepdim=True)
+        energy = torch.sqrt((fr ** 2).mean(-1) + 1e-10)[0]
+        w = fr.shape[-1]
+        n = 1 << (2 * w - 1).bit_length()
+        spec = torch.fft.rfft(fr, n=n, dim=-1)
+        ac = torch.fft.irfft(spec * spec.conj(), n=n, dim=-1)[..., :w]
+        ac = (ac / ac[..., :1].clamp_min(1e-10))[0]
+        lo = max(2, int(audio.sample_rate / 500.0))
+        hi = min(w - 1, int(audio.sample_rate / 65.0))
+        top = ac[:, lo:hi].topk(2, dim=-1).values
+        voiced = (top[:, 0] > 0.3) & (energy > 1e-3)
+        m["peak"] = min(m["peak"], float((top[:, 0] - 0.3).abs().min()))
+        m["energy"] = min(m["energy"], float((energy - 1e-3).abs().min()))
+        if voiced.any():
+            gap = (top[:, 0] - top[:, 1])[voiced]
+            m["lag_gap"] = min(m["lag_gap"], float(gap.min()))
+        d = out / "emotion_tags" / spk
+        deltas = np.asarray(json.loads((d / "drift_vector.json")
+                                       .read_text())["deltas"])
+        sm = savgol_smooth(deltas)
+        th = np.array([2.0 * (sm[max(0, i - 50):i + 1].std() + 1e-6)
+                       for i in range(len(sm))])
+        m["drift"] = min(m["drift"], float((np.abs(np.abs(sm) - th)
+                                            / th).min()))
+        for t in json.loads((d / "tier2_tags.json").read_text())["tags"]:
+            m["tier2_conf"] = min(m["tier2_conf"], min(
+                abs(t["confidence"] - 0.90), abs(t["confidence"] - 0.65)))
+    return m
+
+
+def observer_phase(seed: int, workdir: Path):
+    """Phase 5g (see the module docstring). Returns its fields."""
+    import contextlib
+    import io
+    import uuid
+    import numpy as np
+    import torch
+    from ttsx_torch import ops
+    from ttsx_torch.cli.main import main_observer
+    from ttsx_torch.data.dataset import write_wav
+    from ttsx_torch.pipeline import ObserverPipeline, watch
+    from ttsx_torch.pipeline.asr import ASRService, ScriptedText
+    from ttsx_torch.pipeline.diarizer.controller import DiarizerController
+    from ttsx_torch.zoo import AUDIO, DEFAULT_ZOO, load_diar_encoder
+    from ttsx_torch.zoo import load_prosody
+    D = np.load(DEFAULT_ZOO.parent / "diar_embs.npz", allow_pickle=True)
+    wav = D["wav"].astype(np.float32)
+    audio_s = len(wav) / AUDIO.sample_rate
+    wav_path = workdir / "dialogue_hard.wav"
+    write_wav(wav_path, wav, AUDIO.sample_rate)
+    models = {dev: (load_diar_encoder(device=dev),
+                    load_prosody(device=dev)[1]) for dev in ("cuda", "cpu")}
+
+    def pipeline(dev):
+        enc, pred = models[dev]
+        ctl = DiarizerController(AUDIO, embedder=enc, device=dev,
+                                 **DIAR_PROD)
+        asr = ASRService(transcribe_fn=ScriptedText(ASRService(
+            audio=AUDIO, device=dev)), audio=AUDIO, device=dev)
+        return dict(au=AUDIO, diarizer=ctl, asr=asr, prosody_params=pred,
+                    device=dev)
+
+    def job(dev, out):
+        """(summary, seconds, artifacts) of one job; fails unless it is
+        done with every stage ok and speakers."""
+        pipe = ObserverPipeline(**pipeline(dev))
+        uuid.uuid4 = Names()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        summary = pipe.run_job(str(wav_path), str(out))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t1
+        if (summary["status"] != "done" or not summary["speakers"]
+                or set(summary["stages"].values()) != {"ok"}):
+            fail(f"observer job on {dev}: {summary}")
+        return summary, sec, read_tree(out)
+
+    new_uuid = uuid.uuid4
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    try:
+        cold, cold_s, _ = job("cuda", workdir / "cold")
+        warm, warm_s, got = job("cuda", workdir / "warm")
+        cpu, cpu_s, want = job("cpu", workdir / "cpu")
+    finally:
+        uuid.uuid4 = new_uuid
+    log = got["diarization_log.json"]
+    bytes_in_use = [r.get("device_bytes_in_use", 0)
+                    for r in warm["resources"]]
+
+    # card vs CPU: decisions equal, the trend within its tolerances
+    def labels(tree, name, keys):
+        return {k: [[t[x] for x in keys] for t in v["tags"]]
+                for k, v in tree.items() if k.endswith(name)}
+    equal = dict(
+        speakers=warm["speakers"] == cpu["speakers"],
+        transcripts={k: v for k, v in got.items()
+                     if k.endswith("transcript.json")}
+        == {k: v for k, v in want.items() if k.endswith("transcript.json")},
+        tier1=labels(got, "tier1_tags.json", ("label", "status"))
+        == labels(want, "tier1_tags.json", ("label", "status")),
+        tier2=labels(got, "tier2_tags.json", ("label", "rule_id", "status"))
+        == labels(want, "tier2_tags.json", ("label", "rule_id", "status")),
+        arc_pattern=got["arc_classification.json"]["pattern"]
+        == want["arc_classification.json"]["pattern"],
+        plot_map_beats=got["plot_map.json"]["beats"]
+        == want["plot_map.json"]["beats"])
+    trend_err, trend_tol = {}, {}
+    for k, v in want.items():
+        if not k.endswith("prosody_trend.json"):
+            continue
+        for key, ref in v.items():
+            a, b = np.asarray(got[k][key], float), np.asarray(ref, float)
+            if a.shape != b.shape:
+                fail(f"{k}[{key}]: shape {a.shape} on the card, {b.shape} "
+                     f"on the CPU")
+            tol = OBSERVER_TREND_TOL.get(key, 0.0)
+            if key in OBSERVER_MODEL_STEP:
+                tol = (PROSODY_RTOL * float(np.abs(b).max())
+                       + OBSERVER_MODEL_STEP[key])
+            e = float(np.abs(a - b).max()) if a.size else 0.0
+            trend_err[key] = max(trend_err.get(key, 0.0), e)
+            trend_tol[key] = max(trend_tol.get(key, 0.0), tol)
+            if not e <= tol + 1e-9:
+                fail(f"{k}[{key}] card vs CPU {e} > {tol}")
+    margins = job_margins(workdir / "warm", warm["speakers"], AUDIO)
+
+    # watch mode: a marker in an inbox, processed to done
+    inbox, outbox = workdir / "inbox", workdir / "watched"
+    inbox.mkdir()
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT,
+                                                  signal.SIGTERM)}
+    watcher, worker, q = watch(str(inbox), str(outbox), poll_s=0.1,
+                               **pipeline("cuda"))
+    try:
+        write_wav(inbox / "stream.wav", wav, AUDIO.sample_rate)
+        t1 = time.perf_counter()
+        (inbox / "stream.wav.ready").write_text("")
+        while (time.perf_counter() - t1 < OBSERVER_WATCH_S
+               and q.get_status("stream") not in ("done", "failed",
+                                                  "partial-failure")):
+            time.sleep(0.02)
+        watch_s = time.perf_counter() - t1
+        watch_status = q.get_status("stream")
+    finally:
+        watcher.stop()
+        worker.stop()
+        for s, h in handlers.items():
+            signal.signal(s, h)
+    if watch_status != "done":
+        fail(f"the watched job is {watch_status} after {watch_s:.1f} s")
+
+    # the command line, once, in this process
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = main_observer(["--job", str(wav_path), "--device", "cuda",
+                            "--output-dir", str(workdir / "cli")])
+    cli = json.loads(printed.getvalue())
+    launches = ops.launch_counts()
+    if rc != 0 or cli["status"] != "done" or not cli["speakers"] or set(
+            cli["stages"].values()) != {"ok"}:
+        fail(f"main_observer: rc {rc}, {cli}")
+
+    fields = dict(
+        audio_s=audio_s, speakers=len(warm["speakers"]),
+        segments=log["n_slices"],
+        first_job_s=cold_s, warm_job_s=warm_s,
+        warm_s_per_audio_s=warm_s / audio_s, cpu_job_s=cpu_s,
+        step_times=dict(card_cold=cold["step_times"],
+                        card_warm=warm["step_times"],
+                        cpu=cpu["step_times"]),
+        device_bytes_in_use=[min(bytes_in_use), max(bytes_in_use)],
+        card_equals_cpu=equal, trend_max_abs_diff_card_vs_cpu=trend_err,
+        trend_tolerance=trend_tol, margins=margins,
+        watch=dict(status=watch_status, round_trip_s=watch_s),
+        main_observer=dict(rc=rc, status=cli["status"],
+                           speakers=len(cli["speakers"])),
+        launches=launches)
+    if (len(warm["speakers"]), log["n_slices"]) != (DIAR_SPEAKERS,
+                                                    DIAR_SEGMENTS):
+        fail(f"observer job: {len(warm['speakers'])} speakers, "
+             f"{log['n_slices']} segments; 5f gives {DIAR_SPEAKERS}, "
+             f"{DIAR_SEGMENTS}")
+    if not min(bytes_in_use) > 0:
+        fail(f"device_bytes_in_use {bytes_in_use}")
+    if not all(equal.values()):
+        fail(f"the card's job differs from the CPU's: {equal}")
+    if any(launches.values()):
+        fail(f"the observer job launched a kernel: {launches}")
+    return fields
+
+
 def time_gan(voc, batch):
     """ms of the vocoder's disc_step with R1 and without and of its
     gen_step, plain and with ``remat`` (each FiLM residual block
@@ -2574,6 +2837,11 @@ def main(argv=None) -> int:
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         emit("diarizer", t0, **diarizer_phase(args.seed, Path(tmp)))
+
+    # -- 5g. the observer ingestion job on the same stream
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        emit("observer", t0, **observer_phase(args.seed, Path(tmp)))
 
     # -- 6. timing: K3 at each batch shape the trainer collated (the
     # largest first) and at the clip, K1 and K2 at the stage shapes of

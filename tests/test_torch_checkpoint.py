@@ -14,6 +14,9 @@
   into the pipeline's and raises, (c) its ``extra`` drops the GAN loss
   EMAs;
 * ``main_train --resume`` and ``main_synth --checkpoint`` on the CPU;
+  a resumed ``main_train`` goes on with the batches that follow the
+  stopped run's (a departure: the reference starts its stream again from
+  the seed);
 * the acoustic and refiner slim exports, both ways, exact.
 """
 import dataclasses
@@ -330,6 +333,77 @@ def test_main_train_resume_and_main_synth_checkpoint(tmp_path, capsys):
         assert torch.equal(v, flat[f"vocoder/gen/{src}/{k}"]), k
     assert any(not torch.equal(flat[f"vocoder/gen/ema/{k}"],
                                flat[f"vocoder/gen/params/{k}"]) for k in names)
+
+
+def _wav_tree(root):
+    from ttsx_torch.data.dataset import write_wav
+    rng = np.random.default_rng(0)
+    for i in range(6):
+        d = root / f"spk{i % 2}" / "read" / f"s{i % 3}"
+        d.mkdir(parents=True, exist_ok=True)
+        n = int(rng.integers(3000, 9000))
+        write_wav(d / f"u{i}.wav", (0.3 * np.sin(np.arange(n) * 0.05 * (i + 1))
+                                    ).astype(np.float32), 16000)
+        (d / f"u{i}.txt").write_text(f"utterance number {i}")
+    return str(root)
+
+
+@pytest.mark.parametrize("source", ["wav_tree", "synthetic"])
+def test_resumed_main_train_continues_the_data_stream(source, tmp_path,
+                                                      monkeypatch, capsys):
+    """``main_train`` (acoustic block, 2 micro-batches a step) for 2 steps,
+    then ``--resume`` to 4, sees the batches of 4 uninterrupted steps: the
+    collator's items and ``batch_idx``, or the synthetic batches' seeds,
+    in order, and ends with the same parameters and moments, bitwise (the
+    collator's cache keeps each wav's first augmentation, which the
+    resumed stream replays). The reference's ``--resume`` draws batches
+    0, 1, ... again."""
+    import ttsx_torch.data.collate as collate
+    import ttsx_torch.data.synthetic as synthetic
+    from ttsx_torch.cli.main import main_train
+    seen = []
+    call, batch = collate.TTSCollator.__call__, synthetic.synthetic_batch
+
+    def collating(self, items, epoch=0, batch_idx=0):
+        if self.cfg.augment:    # the training collator, not validation's
+            seen.append(([it["wav_path"] for it in items], batch_idx))
+        return call(self, items, epoch, batch_idx)
+
+    def drawing(cfg, *args, seed=0, **kw):
+        if seed != 10_000:      # the validation batch
+            seen.append(seed)
+        return batch(cfg, *args, seed=seed, **kw)
+    monkeypatch.setattr(collate.TTSCollator, "__call__", collating)
+    monkeypatch.setattr(synthetic, "synthetic_batch", drawing)
+    cfg = with_train(tiny_cfg(accum=2), checkpoint_freq=2)
+    cfg_file = tmp_path / "cfg.json"
+    cfg_file.write_text(json.dumps(tc.to_dict(cfg)))
+    data = (["--data-root", _wav_tree(tmp_path / "wavs")]
+            if source == "wav_tree" else ["--synthetic"])
+    runs = {}
+    for name, legs in (("straight", [(["--max-steps", "4"], 8)]),
+                       ("resumed", [(["--max-steps", "2"], 4),
+                                    (["--max-steps", "4", "--resume"], 4)])):
+        used = []
+        out = tmp_path / name
+        for leg, n in legs:
+            seen.clear()
+            assert main_train(data + leg + [
+                "--device", "cpu", "--config", str(cfg_file), "--blocks",
+                "acoustic", "--output-dir", str(out)]) == 0
+            used += seen[:n]    # a wav stream collates one batch ahead
+        runs[name] = (used, ckpt.read_checkpoint(str(out / "checkpoints"),
+                                                 "final"))
+    capsys.readouterr()
+    (want, (flat_a, step_a, extra_a)), (got, (flat_b, step_b, extra_b)) = (
+        runs["straight"], runs["resumed"])
+    assert got == want
+    assert [b if source == "synthetic" else b[1] for b in got] == list(
+        range(8))
+    assert step_a == step_b == 4 and extra_a == extra_b
+    assert extra_b["batches"] == 8
+    assert flat_a.keys() == flat_b.keys()
+    assert [k for k in flat_a if not torch.equal(flat_a[k], flat_b[k])] == []
 
 
 # ------------------------------------------------------------ slim exports

@@ -17,7 +17,6 @@ package, so both name their speakers alike.
 """
 from __future__ import annotations
 
-import functools
 import json
 import logging
 import types
@@ -30,8 +29,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity_helpers import init_like, one_torch_thread  # noqa: F401
-from torch_parity_helpers import to_numpy
+from torch_parity_helpers import one_torch_thread  # noqa: F401
+from torch_parity_helpers import (Names as _Names, jitted, same,
+                                  tiny_encoder, to_numpy, two_speaker_wav)
 
 import ttsx.core.config as rcfg
 import ttsx.data.dataset as rdata
@@ -88,39 +88,10 @@ PORT = types.SimpleNamespace(
 PKGS = (REF, PORT)
 
 
-class _Names:
-    """uuid.uuid4 stand-in: 1, 2, 3, ... as hex."""
-
-    def __init__(self):
-        self.n = 0
-
-    def __call__(self):
-        self.n += 1
-        return types.SimpleNamespace(hex=f"{self.n:08x}")
-
-
 @pytest.fixture
 def names(monkeypatch):
     """Call before each package's run: new speakers are spk-00000001, ..."""
     return lambda: monkeypatch.setattr(uuid, "uuid4", _Names())
-
-
-def same(a, b, path="out"):
-    """Exact equality through dicts, sequences and arrays."""
-    if isinstance(a, dict):
-        assert a.keys() == b.keys(), path
-        for k in a:
-            same(a[k], b[k], f"{path}[{k!r}]")
-    elif isinstance(a, (list, tuple)) and not isinstance(b, np.ndarray):
-        assert len(a) == len(b), path
-        for i, (x, y) in enumerate(zip(a, b)):
-            same(x, y, f"{path}[{i}]")
-    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
-        a, b = np.asarray(a), np.asarray(b)
-        assert a.dtype == b.dtype and a.shape == b.shape, path
-        np.testing.assert_array_equal(a, b, err_msg=path)
-    else:
-        assert type(a) == type(b) and a == b, (path, a, b)
 
 
 @pytest.fixture(scope="module")
@@ -130,34 +101,6 @@ def dump():
 
 def _audio(pkg, **kw):
     return pkg.cfg.AudioConfig(**kw)
-
-
-@functools.lru_cache(maxsize=None)
-def two_speaker_wav():
-    """An 8 s two-speaker stream (ToneCorpus, overlapped onsets, 20 dB
-    SNR) and its truth segments."""
-    corpus = RToneCorpus(n_speakers=2, audio=rcfg.AudioConfig(), seed=3)
-    wav, truth, _ = corpus.dialogue_hard([0, 1], 6, noise_db=20.0,
-                                         overlap_prob=0.4, seed=3)
-    return wav, truth
-
-
-@functools.lru_cache(maxsize=None)
-def tiny_encoder():
-    """(RefEncConfig kwargs, the reference's variables tree as numpy):
-    ECAPA 32 channels, speaker_dim 32."""
-    kw = dict(speaker_dim=32, ecapa_channels=32, num_speakers=2)
-    model = RReferenceEncoder(rcfg.RefEncConfig(**kw))
-    tree = init_like(model, jnp.zeros((1, 256, 80)),
-                     jnp.ones((1, 256), bool), seed=1, scale=0.2)
-    return kw, to_numpy(tree)
-
-
-def jitted(emb):
-    """The reference embedder ``emb`` with its encoder's apply jitted."""
-    emb._ensure_model(emb.au.n_mels)
-    emb._model = types.SimpleNamespace(apply=jax.jit(emb._model.apply))
-    return emb
 
 
 def embedders(au_kw=None, **kw):

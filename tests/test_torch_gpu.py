@@ -781,3 +781,83 @@ def test_diarizer_batch_two_workers_on_card(cuda, tmp_path):
         log = json.loads((tmp_path / "out" / job /
                           "diarization_log.json").read_text())
         assert log["status"] == "ok" and r and r["slices"], job
+
+
+# ------------------------------------------------------------- observer
+def test_observer_entry_points_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA card")
+    from ttsx_torch.cli.main import main_observer
+    from ttsx_torch.pipeline import (ASRService, ObserverPipeline,
+                                     ProsodyExtractStage, watch)
+    from ttsx_torch.pipeline import services
+    wav = np.zeros(22050, np.float32)
+    for call in (ObserverPipeline, ASRService, ProsodyExtractStage,
+                 lambda: watch(str(tmp_path), str(tmp_path / "out")),
+                 lambda: services.asr_transcribe(wav, 22050),
+                 lambda: services.ssl_features(wav[None], 22050),
+                 lambda: services.vad_probs(wav, 22050),
+                 lambda: main_observer(["--job", "x.wav", "--output-dir",
+                                        str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+def test_observer_job_on_card(cuda, tmp_path):
+    """One observer job on the card (an 8 s two-speaker stream, a small
+    untrained slice encoder, the ``ScriptedText`` transcriber, a small
+    prosody predictor): ``done``, every stage ``ok``, speakers, device
+    memory in every resource snapshot, no kernel launched; the same job
+    on the CPU names the same speakers and writes the same tier-2
+    labels."""
+    import json
+    import uuid
+    from ttsx_torch.core.config import ProsodyConfig, RefEncConfig, S4Config
+    from ttsx_torch.data.dataset import write_wav
+    from ttsx_torch.data.tonecorpus import ToneCorpus
+    from ttsx_torch.models.prosody import ProsodyPredictor
+    from ttsx_torch.pipeline import ObserverPipeline, ReIDMemory
+    from ttsx_torch.pipeline.asr import ASRService, ScriptedText
+    from ttsx_torch.pipeline.diarizer import (DiarizerController,
+                                              SliceEmbedder)
+    au = AudioConfig()
+    wav, _, _ = ToneCorpus(n_speakers=2, audio=au, seed=3).dialogue_hard(
+        [0, 1], 6, noise_db=20.0, overlap_prob=0.4, seed=3)
+    wp = tmp_path / "two.wav"
+    write_wav(wp, wav.astype(np.float32), au.sample_rate)
+    pcfg = ProsodyConfig(audio=AudioConfig(mel_normalize=False), cond_dim=32,
+                         n_layers=2, s4=S4Config(heads=2, norm_groups=4))
+    torch.manual_seed(0)
+    pred = ProsodyPredictor(pcfg)
+    ops.reset_launches()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        n = iter(range(1, 100))
+        uuid4 = uuid.uuid4
+        uuid.uuid4 = lambda: type("U", (), {"hex": f"{next(n):08x}"})()
+        try:
+            emb = SliceEmbedder(au, RefEncConfig(speaker_dim=32,
+                                                 ecapa_channels=32,
+                                                 num_speakers=2),
+                                device=dev)
+            ctl = DiarizerController(au, embedder=emb, device=dev,
+                                     memory=ReIDMemory(match_threshold=0.9))
+            asr = ASRService(transcribe_fn=ScriptedText(ASRService(
+                audio=au, device=dev)), audio=au, device=dev)
+            pipe = ObserverPipeline(au, ctl, asr, prosody_params=pred.to(dev),
+                                    device=dev)
+            summary = pipe.run_job(str(wp), str(tmp_path / dev))
+        finally:
+            uuid.uuid4 = uuid4
+        assert summary["status"] == "done" and summary["speakers"], summary
+        assert set(summary["stages"].values()) == {"ok"}
+        out[dev] = summary
+    assert all(r["device_bytes_in_use"] > 0
+               for r in out["cuda"]["resources"])
+    assert out["cuda"]["speakers"] == out["cpu"]["speakers"]
+    for spk in out["cpu"]["speakers"]:
+        tags = [json.loads((tmp_path / dev / "emotion_tags" / spk /
+                            "tier2_tags.json").read_text())["tags"]
+                for dev in ("cuda", "cpu")]
+        assert [t["label"] for t in tags[0]] == [t["label"] for t in tags[1]]
+    assert not any(ops.launch_counts().values())

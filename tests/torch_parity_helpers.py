@@ -7,7 +7,11 @@ and reach the port through ``ttsx_torch.weights.from_flax``.
 """
 from __future__ import annotations
 
+import functools
+import types
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -82,3 +86,66 @@ def init_like(jax_module, *args, seed: int = 0, scale: float = 0.05, **kw):
         return v + 1.0 if "scale" in name else v
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+class Names:
+    """uuid.uuid4 stand-in: 1, 2, 3, ... as hex (new speakers are named
+    from ``uuid.uuid4``; replaced by a fresh ``Names()`` before each
+    package's run, both name their speakers alike)."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __call__(self):
+        self.n += 1
+        return types.SimpleNamespace(hex=f"{self.n:08x}")
+
+
+def same(a, b, path="out"):
+    """Exact equality through dicts, sequences and arrays."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            same(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)) and not isinstance(b, np.ndarray):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            same(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    else:
+        assert type(a) == type(b) and a == b, (path, a, b)
+
+
+@functools.lru_cache(maxsize=None)
+def two_speaker_wav():
+    """An 8 s two-speaker stream (ToneCorpus, overlapped onsets, 20 dB
+    SNR) and its truth segments."""
+    from ttsx.core.config import AudioConfig
+    from ttsx.data.tonecorpus import ToneCorpus
+    corpus = ToneCorpus(n_speakers=2, audio=AudioConfig(), seed=3)
+    wav, truth, _ = corpus.dialogue_hard([0, 1], 6, noise_db=20.0,
+                                         overlap_prob=0.4, seed=3)
+    return wav, truth
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_encoder():
+    """(RefEncConfig kwargs, the reference's variables tree as numpy):
+    ECAPA 32 channels, speaker_dim 32."""
+    from ttsx.core.config import RefEncConfig
+    from ttsx.models.reference_encoder import ReferenceEncoder
+    kw = dict(speaker_dim=32, ecapa_channels=32, num_speakers=2)
+    model = ReferenceEncoder(RefEncConfig(**kw))
+    tree = init_like(model, jnp.zeros((1, 256, 80)),
+                     jnp.ones((1, 256), bool), seed=1, scale=0.2)
+    return kw, to_numpy(tree)
+
+
+def jitted(emb):
+    """The reference embedder ``emb`` with its encoder's apply jitted."""
+    emb._ensure_model(emb.au.n_mels)
+    emb._model = types.SimpleNamespace(apply=jax.jit(emb._model.apply))
+    return emb

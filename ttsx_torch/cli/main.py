@@ -1,7 +1,8 @@
 """The port's command lines (``ttsx/cli/main.py``): ``main_train``, the
 acoustic, refiner and vocoder GAN trainer on a wav tree or on synthetic
-batches, ``main_synth``, text -> waveform, and ``main_diarize``, the
-speaker diarizer.
+batches, ``main_synth``, text -> waveform, ``main_diarize``, the
+speaker diarizer, and ``main_observer``, the observer ingestion
+pipeline.
 
     python -m ttsx_torch.cli.main --data-root DIR [--max-steps N]
         [--config cfg.json] [--output-dir out] [--device cuda|cpu]
@@ -18,9 +19,14 @@ validation pass; ``train_log.jsonl`` and ``step_times.json`` go to
 ``--output-dir`` and the checkpoints (``best``, ``last`` every
 ``checkpoint_freq`` steps, ``final``) to ``--output-dir``/checkpoints.
 ``--resume`` restores ``last`` from there first and trains on to
-``--max-steps``; the batches start again from the stream's seed, as in
-the reference. The vocoder trains on each step's collated wav (cut to
-whole generator hops: ``train.blocks.match_lengths``).
+``--max-steps`` on the batches that follow the ones the stopped run's
+steps took (the checkpoint's ``extra["batches"]``, micro-batches
+included): the index draws and the collator's ``batch_idx``, or the
+synthetic batches' seeds, go on where that run left them, so a resumed
+run sees the batches of an uninterrupted one (the reference starts its
+stream again from the seed). The vocoder trains on each step's
+collated wav (cut to whole generator hops:
+``train.blocks.match_lengths``).
 
     python -m ttsx_torch.cli.synth [--zoo [DIR]] [--sde] [--text T]
         [--frames N] [--out synth.wav] [--seed S] [--device cuda|cpu]
@@ -55,6 +61,21 @@ the DER and purity of the first wav's RTTM against a reference RTTM (in
 batch mode the RTTM in that job's directory; the reference reads the
 top directory there, where batch mode writes none). It returns 0 when a
 job succeeded.
+
+    python -m ttsx_torch.cli.observer (--job WAV | --watch DIR)
+        [--output-dir out] [--git-repo REPO] [--config FILE]
+        [--device cuda|cpu]
+
+``main_observer`` (as the reference's ``ttsx-observer``) builds the
+default ``ObserverPipeline`` on ``--device`` (an untrained slice
+encoder, the energy-VAD transcriber, the DSP prosody trend) and runs one
+job on ``--job`` into ``--output-dir``, printing its summary (it returns
+0 unless the job's status is ``failed``; a ``partial-failure`` returns 0,
+as in the reference), or watches ``--watch`` for ``<name>.wav.ready``
+markers, each job under ``--output-dir``/<name>, until SIGINT or SIGTERM
+(the reference's loop waits for a ``KeyboardInterrupt`` that its own
+signal handler keeps from coming, so it never returns). ``--config`` is
+parsed and not used, as in the reference.
 """
 from __future__ import annotations
 
@@ -67,9 +88,13 @@ from typing import Dict, Iterator
 import numpy as np
 
 
-def data_streams(cfg, data_root: str, device):
+def data_streams(cfg, data_root: str, device, start: int = 0):
     """(train iterator, validation list) over ``data_root``; each training
-    batch carries its host ``collate_time`` in seconds."""
+    batch carries its host ``collate_time`` in seconds. The iterator
+    begins at batch ``start`` of the stream: the batches before it are
+    drawn but not collated, only their wavs' augmentations replayed into
+    the collator's feature cache (``TTSCollator.replay``), which keeps a
+    wav's first augmentation."""
     from ttsx_torch.data.adapters import collator_to_trainer_batch
     from ttsx_torch.data.collate import CollatorConfig, TTSCollator
     from ttsx_torch.data.dataset import TTSDataset, TTSDatasetConfig
@@ -85,7 +110,12 @@ def data_streams(cfg, data_root: str, device):
 
     def train() -> Iterator[Dict]:
         rng = np.random.default_rng(cfg.train.seed)
-        bi = 0
+        for bi in range(start):
+            idx = rng.choice(len(ds), bs)
+            if coll.cfg.cache_features and coll.cfg.augment:
+                coll.replay([ds[int(i)] for i in idx if not coll.cached(
+                    ds.items[int(i)]["wav_path"])], batch_idx=bi)
+        bi = start
         while True:
             idx = rng.choice(len(ds), bs)
             raw = coll([ds[int(i)] for i in idx], batch_idx=bi)
@@ -123,15 +153,21 @@ def main_train(argv=None) -> int:
     if device.type == "cuda":
         set_f32_numerics()
 
+    out = Path(args.output_dir)
+    start = 0
+    if args.resume:
+        from ttsx_torch.train.checkpoint import read_meta
+        meta = read_meta(str(out / "checkpoints"), "last") or {}
+        start = int(meta.get("extra", {}).get("batches", 0))
     if args.synthetic or not args.data_root:
         from ttsx_torch.data.synthetic import synthetic_batch, synthetic_stream
         steps = args.max_steps or 10
         stream = synthetic_stream(cfg, batch=2, frames=16,
-                                  n=steps * cfg.train.grad_accum_steps)
+                                  n=steps * cfg.train.grad_accum_steps,
+                                  start=start)
         val = [synthetic_batch(cfg, batch=2, frames=16, seed=10_000)]
     else:
-        stream, val = data_streams(cfg, args.data_root, device)
-    out = Path(args.output_dir)
+        stream, val = data_streams(cfg, args.data_root, device, start)
     trainer = UnifiedTrainer(
         cfg, stream, val, blocks=blocks, device=device,
         callbacks=[JSONLLogger(str(out / "train_log.jsonl"), every=1),
@@ -205,6 +241,36 @@ def main_synth(argv=None) -> int:
                       "seconds": wav.shape[1] / cfg.vocoder.sr, **loaded}))
     return 0
 
+
+def main_observer(argv=None) -> int:
+    p = argparse.ArgumentParser("ttsx-torch-observer")
+    p.add_argument("--job", help="process a single wav")
+    p.add_argument("--watch", help="watch a directory for *.ready markers")
+    p.add_argument("--config", help="YAML/JSON config file (not used)")
+    p.add_argument("--git-repo", help="repo for artifact sync")
+    p.add_argument("--output-dir", default="./output")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    from ttsx_torch.core.device import resolve_device, set_f32_numerics
+    from ttsx_torch.pipeline import ObserverPipeline, watch
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        set_f32_numerics()
+    if args.job:
+        pipe = ObserverPipeline(git_repo=args.git_repo, device=device)
+        summary = pipe.run_job(args.job, args.output_dir)
+        print(json.dumps(summary, indent=1))
+        return 0 if summary["status"] != "failed" else 1
+    if args.watch:
+        watcher, worker, q = watch(args.watch, args.output_dir,
+                                   git_repo=args.git_repo, device=device)
+        print(f"watching {args.watch} (ctrl-c to stop)", flush=True)
+        watcher.wait()      # until SIGINT / SIGTERM stops the watcher
+        worker.stop()
+        return 0
+    p.print_help()
+    return 2
 
 
 def main_diarize(argv=None) -> int:

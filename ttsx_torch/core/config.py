@@ -4,8 +4,10 @@ A stdlib-only copy of the part of ``ttsx.core.config`` that synthesis and
 the trainers read: ``AudioConfig``, ``S4Config``, ``RefEncConfig`` (the
 speaker encoder), ``ProsodyConfig`` (the prosody predictor),
 ``AcousticConfig``, ``RefinerConfig``, ``VocoderConfig``, ``NovelConfig``,
-``TrainConfig``, a ``TTSXConfig`` root holding the synthesis chain's
-and its trainers', and ``DiarizerConfig`` (the speaker diarizer). Field
+``TrainConfig``, ``DiarizerConfig`` (the speaker diarizer),
+``PipelineConfig`` (the observer pipeline) and a ``TTSXConfig`` root
+holding the synthesis chain's, its trainers' and the pipeline's (the
+reference's ``mesh`` is not carried yet). Field
 names and defaults are the reference's, so a dict written by
 ``ttsx.core.config.to_dict`` loads here through ``from_dict`` (keys this
 tree does not carry are ignored) and back.
@@ -234,17 +236,6 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
-class TTSXConfig:
-    audio: AudioConfig = field(default_factory=AudioConfig)
-    ref_enc: RefEncConfig = field(default_factory=RefEncConfig)
-    prosody: ProsodyConfig = field(default_factory=ProsodyConfig)
-    acoustic: AcousticConfig = field(default_factory=AcousticConfig)
-    refiner: RefinerConfig = field(default_factory=RefinerConfig)
-    vocoder: VocoderConfig = field(default_factory=VocoderConfig)
-    train: TrainConfig = field(default_factory=TrainConfig)
-
-
-@dataclass(frozen=True)
 class DiarizerConfig:
     """The speaker diarizer (``ttsx.core.config.DiarizerConfig``)."""
     min_slice_dur: float = 1.5
@@ -265,6 +256,36 @@ class DiarizerConfig:
     embed_dim: int = 192
     batch_size: int = 1
     dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """The observer pipeline's settings
+    (``ttsx.core.config.PipelineConfig``)."""
+    diarizer: DiarizerConfig = field(default_factory=DiarizerConfig)
+    drift_window: int = 50
+    drift_k_sigma: float = 2.0
+    beats_per_arc: int = 3
+    arc_seconds_per_cluster: float = 300.0
+    validation_frac: float = 0.05
+    validation_cap: int = 500
+    rule_ema_alpha: float = 0.9
+    accuracy_drop_alert: float = 0.05
+    git_push_retries: int = 3
+    chunk_bytes: int = 1_000_000_000   # >1 GB wavs get chunk-processed
+    transcription_chunk_s: float = 600.0
+
+
+@dataclass(frozen=True)
+class TTSXConfig:
+    audio: AudioConfig = field(default_factory=AudioConfig)
+    ref_enc: RefEncConfig = field(default_factory=RefEncConfig)
+    prosody: ProsodyConfig = field(default_factory=ProsodyConfig)
+    acoustic: AcousticConfig = field(default_factory=AcousticConfig)
+    refiner: RefinerConfig = field(default_factory=RefinerConfig)
+    vocoder: VocoderConfig = field(default_factory=VocoderConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    pipeline: PipelineConfig = field(default_factory=PipelineConfig)
 
 
 def to_dict(cfg: Any) -> Any:

@@ -162,12 +162,30 @@ class TTSCollator:
                 self._cache[key] = wav
         return wav
 
+    def _rng(self, epoch: int, batch_idx: int) -> np.random.Generator:
+        return np.random.default_rng(
+            (self.cfg.seed * 1_000_003 + epoch * 10_007 + batch_idx)
+            & 0x7FFFFFFF)
+
+    def cached(self, wav_path: str) -> bool:
+        with self._lock:
+            return wav_path in self._cache
+
+    def replay(self, items: List[Dict], epoch: int = 0,
+               batch_idx: int = 0) -> None:
+        """Fill the feature cache as ``__call__`` on this batch would,
+        without computing its features: a stream that skips batches
+        (a resumed run) replays them, so that every wav keeps the
+        augmentation of the batch it first came in. Items whose wav is
+        cached already may be left out: they draw nothing."""
+        rng = self._rng(epoch, batch_idx)
+        for it in items:
+            self._augmented_wav(it, rng)
+
     def __call__(self, items: List[Dict], epoch: int = 0,
                  batch_idx: int = 0) -> Dict:
         t0 = time.perf_counter()
-        rng = np.random.default_rng(
-            (self.cfg.seed * 1_000_003 + epoch * 10_007 + batch_idx)
-            & 0x7FFFFFFF)
+        rng = self._rng(epoch, batch_idx)
 
         wavs = [self._augmented_wav(it, rng) for it in items]
         max_wav = bucket_length(max(len(w) for w in wavs),

@@ -36,6 +36,9 @@ def synthetic_batch(cfg: TTSXConfig, batch: int = 2, frames: int = 16,
 
 
 def synthetic_stream(cfg: TTSXConfig, batch: int = 2, frames: int = 16,
-                     n: int = 10, seed: int = 0) -> Iterator[Dict]:
-    for i in range(n):
+                     n: int = 10, seed: int = 0, start: int = 0
+                     ) -> Iterator[Dict]:
+    """Batches ``start`` .. ``n - 1`` of the stream, batch i drawn from
+    ``seed + i``."""
+    for i in range(start, n):
         yield synthetic_batch(cfg, batch, frames, seed=seed + i)

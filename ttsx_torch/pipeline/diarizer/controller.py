@@ -31,7 +31,6 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from logging.handlers import RotatingFileHandler
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -47,6 +46,7 @@ from ttsx_torch.pipeline.diarizer.cluster import (
     ReIDMemory)
 from ttsx_torch.pipeline.diarizer.overlap import detect_overlaps
 from ttsx_torch.pipeline.diarizer.rebuilder import reconstruct_audio
+from ttsx_torch.utils.logs import LogFile
 
 log = logging.getLogger("ttsx_torch.diarizer")
 
@@ -124,8 +124,8 @@ class DiarizerController:
         # speaker re-identification); its updates are the one
         # thread-unsafe section when diarize_batch runs jobs in parallel
         self._mem_lock = threading.Lock()
-        # the one rotating handler diarize_batch installed on `log`
-        self._log_handler: Optional[RotatingFileHandler] = None
+        # the one rotating handler diarize_batch keeps on `log`
+        self._log = LogFile(log)
 
     @classmethod
     def from_config(cls, cfg, au: Optional[AudioConfig] = None,
@@ -392,7 +392,7 @@ class DiarizerController:
         ``out_root/<job id>``."""
         log_root = Path(out_root)
         log_root.mkdir(parents=True, exist_ok=True)
-        self._log_to(log_root / "diarizer.log")
+        self._log.point(log_root / "diarizer.log")
         jobs = dict(zip(job_ids(wav_paths), wav_paths))
         results: Dict = {}
         if workers <= 1 or len(wav_paths) <= 1:
@@ -411,29 +411,6 @@ class DiarizerController:
                 log.warning("batch job %s failed: %s", job, e)
                 results[job] = {"error": str(e)}
         return results
-
-    def _log_to(self, path: Path):
-        """Send the diarizer log to ``path``: the handler this controller
-        installed earlier is removed when the path changes; a handler for
-        ``path`` already on the logger (the CLI's) is used and not owned."""
-        from ttsx_torch.utils.logs import attach_rotating_handler
-        path = path.absolute()
-
-        def handler_for(p):
-            return next((h for h in log.handlers
-                         if isinstance(h, RotatingFileHandler)
-                         and Path(h.baseFilename) == p), None)
-
-        own = self._log_handler
-        if own is not None and Path(own.baseFilename) == path:
-            return
-        if own is not None:
-            log.removeHandler(own)
-            own.close()
-            self._log_handler = None
-        if handler_for(path) is None:
-            attach_rotating_handler(log, path)
-            self._log_handler = handler_for(path)
 
     # ------------------------------------------------------------------
     @staticmethod

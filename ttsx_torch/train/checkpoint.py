@@ -77,6 +77,13 @@ def save_checkpoint(directory: str, tag: str, block_states: Mapping,
     _write(path / META_FILE, lambda p: p.write_text(meta))
 
 
+def read_meta(directory: str, tag: str) -> Optional[Dict]:
+    """``meta.json`` ({"step", "extra"}) of ``directory/tag`` without its
+    state, or None when the tag is absent."""
+    path = Path(directory).absolute() / tag / META_FILE
+    return json.loads(path.read_text()) if path.exists() else None
+
+
 def read_checkpoint(directory: str, tag: str
                     ) -> Optional[Tuple[Dict[str, torch.Tensor], int, Dict]]:
     """(flat state on the CPU, step, extra) of ``directory/tag``, or None

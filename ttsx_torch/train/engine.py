@@ -24,11 +24,13 @@ the end, calling each callback's ``on_checkpoint`` after each save, as
 the reference's does. A checkpoint holds every block's
 ``state_dict`` (parameters and buffers, optimizer moments and counts,
 update steps, the generator's EMA, each block's generator state) and,
-in ``extra``, ``best_val``, ``noise_scale``, ``l1_weight`` and the
-dynamic-GAN loss EMAs. ``restore_checkpoint`` loads it into the
-trainer's blocks, which exist from construction on, so the run goes on
-bit for bit from the step it was saved at (the caller feeds the batches
-that follow).
+in ``extra``, ``best_val``, ``noise_scale``, ``l1_weight``, the
+dynamic-GAN loss EMAs and ``batches``, the number of batches the run's
+steps took from the stream (micro-batches included).
+``restore_checkpoint`` loads it into the trainer's blocks, which exist
+from construction on, so the run goes on bit for bit from the step it
+was saved at; the caller feeds the batches that follow, from
+``batches`` on (``cli.main.main_train``).
 
 Five departures from the reference, the first two reference defects:
 
@@ -67,7 +69,7 @@ from ttsx_torch.train.callbacks import Callback
 # TrainerState fields a checkpoint's ``extra`` carries, with the values a
 # checkpoint without them restores
 EXTRA = {"best_val": float("inf"), "noise_scale": 1.0, "l1_weight": 1.0,
-         "d_loss_ema": 1.0, "g_loss_ema": 1.0}
+         "d_loss_ema": 1.0, "g_loss_ema": 1.0, "batches": 0}
 
 
 class TrainerState:
@@ -81,6 +83,7 @@ class TrainerState:
         self.d_loss_ema = 1.0      # dynamic_gan ratio
         self.g_loss_ema = 1.0
         self.oom_count = 0
+        self.batches = 0           # batches the steps took from the stream
         self.step_times: List[float] = []
 
 
@@ -118,6 +121,7 @@ class UnifiedTrainer:
         metrics: Dict[str, float] = {}
         b = as_tensors(batch, self.device)
         mel_pred = b["mel"]
+        taken = 1       # batches this step takes from the stream
 
         if "acoustic" in self.blocks:
             block = self.blocks["acoustic"]
@@ -128,6 +132,7 @@ class UnifiedTrainer:
                         micro.append(next(self.train_iter))
                     except StopIteration:
                         break
+                taken = len(micro)
                 out = block.train_step_accum(micro)
                 mel_pred = out["mel_pred"][0]
             else:
@@ -149,6 +154,7 @@ class UnifiedTrainer:
             metrics.update(self._gan_step(b))
 
         self.state.global_step += 1
+        self.state.batches += taken
         dt = time.perf_counter() - t0
         self.state.step_times.append(dt)
         metrics["step_time_s"] = dt
@@ -251,8 +257,8 @@ class UnifiedTrainer:
         max_steps = max_steps or cfg.max_steps
         for cb in self.callbacks:
             cb.on_train_start(self)
-        batch = next(self.train_iter)
-        while self.state.global_step < max_steps:
+        batch = next(self.train_iter, None)
+        while batch is not None and self.state.global_step < max_steps:
             self.train_step(batch)
             if cfg.val_freq and self.state.global_step % cfg.val_freq == 0:
                 if self.validate().get("best"):
@@ -260,10 +266,7 @@ class UnifiedTrainer:
             if (cfg.checkpoint_freq
                     and self.state.global_step % cfg.checkpoint_freq == 0):
                 self.save_checkpoint("last")
-            try:
-                batch = next(self.train_iter)
-            except StopIteration:
-                break
+            batch = next(self.train_iter, None)
         self.save_checkpoint("final")
         for cb in self.callbacks:
             cb.on_train_end(self)
