@@ -184,6 +184,33 @@ Run from the root of a checkout. Phases, one JSON line each:
    --device cuda`` once in this process returns 0 with a ``done``
    summary. The job's seconds (cold, warm, per second of audio), its
    step times, and the watch round trip. No kernel launches.
+5h. refenc_cli: the speaker encoder's console scripts at full width
+   (``RefEncConfig()``: ECAPA-TDNN 512, a 256-d embedding) on a
+   ``FormantCorpus`` wav tree of its 12 speakers (6 training and 2
+   held-out utterances each of 300-400 frames, 3.5-4.6 s, written on 8
+   threads): ``main_refenc_train --device cuda`` with the held-out list
+   at batch 8, 3 s crops and 2 loader workers, ``REFENC_CLI_STEPS`` steps
+   with the EER every ``REFENC_CLI_EVAL``: rc 0, the steps, 12 speakers,
+   ``best`` and ``final`` written; each train step timed with the card
+   synchronized, the loader's produced / consumed / failed-decode counts
+   and the seconds spent waiting in its ``next`` (and their share of the
+   run), and where Python's ``Python.h`` is (a native loader's build
+   needs it; ``null`` if absent). ``main_refenc_eer --checkpoint`` on the card and on the CPU: the
+   same EER, the embeddings within ``REFENC_EMB_TOL``.
+   ``main_refenc_fuse`` on the card: the reloaded ``.pt2`` program within
+   ``EXPORT_TOL`` of the eager encoder on a held-out file's first 172
+   frames, and the file's bytes. ``main_refenc_latency --runs 100`` beside
+   5d's 2 s embedding. ``main_bench --device cuda`` (the reference's CI
+   gate, the acoustic model against a ReLU MLP at its factor 20): its JSON
+   and rc, which must agree (0 with a pass, 1 with the gate's error), and
+   both models' forwards replayed from CUDA graphs (their device time)
+   with that ratio beside it. ``microbenchmarks()`` on the card;
+   ``evaluate_acoustic`` with the zoo's acoustic model on two batches of
+   ``ACOUSTIC_EVAL_FRAMES``: ``val_loss`` card vs CPU within
+   ``ACOUSTIC_EVAL_RTOL`` relative. One engine step of the three default
+   blocks at 5c's cut (batch 4, one micro-batch) on a synthetic batch
+   under an ``Observer`` that records its calls: one call per stage
+   stepped, in order, no error. No kernel launches.
 6. timing: CUDA-event times of each kernel beside its plain version (K1
    and K2 at the stage shapes above; K3 by graph replay, eager beside, at
    each batch shape the trainer collated and at the 10 s clip, with the
@@ -242,6 +269,7 @@ import math
 import signal
 import subprocess
 import sys
+import sysconfig
 import tempfile
 import time
 from pathlib import Path
@@ -345,6 +373,15 @@ OBSERVER_TREND_TOL = {"f0": 0.01, "energy": 1e-5}
 OBSERVER_MODEL_STEP = {"model_f0": 0.01, "mfcc": 1e-3, "speech_rate": 0.0,
                        "pause_dur": 0.0}
 OBSERVER_WATCH_S = 120  # a marker's job must be done within this
+# phase 5h, the speaker encoder's console scripts on a FormantCorpus tree
+REFENC_CLI_TRAIN, REFENC_CLI_HELD = 6, 2   # utterances per speaker
+REFENC_CLI_FRAMES = (300, 401)   # 3.5-4.6 s at 22.05 kHz, hop 256
+REFENC_CLI_STEPS, REFENC_CLI_EVAL = 40, 20
+EXPORT_TOL = 1e-5       # the reloaded .pt2 program vs the eager encoder
+ACOUSTIC_EVAL_RTOL = 1e-5   # val_loss card vs CPU, relative
+ACOUSTIC_EVAL_FRAMES = (864, 600)   # two batches of served lengths
+ACOUSTIC_EVAL_BATCH = 2
+OBSERVED_FRAMES = 32    # the observed engine step's synthetic batch
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -2604,6 +2641,244 @@ def observer_phase(seed: int, workdir: Path):
     return fields
 
 
+def formant_lists(seed: int, workdir: Path, audio):
+    """FormantCorpus's 12 speakers, ``REFENC_CLI_TRAIN`` training and
+    ``REFENC_CLI_HELD`` held-out utterances each of ``REFENC_CLI_FRAMES``
+    frames, as wavs under ``workdir``; returns the training list's and the
+    held-out list's paths and the host seconds. Utterance k is drawn from
+    its own generator, seeded (seed, k), on 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from ttsx_torch.data.dataset import write_wav
+    from ttsx_torch.data.formantcorpus import FormantCorpus
+    t1 = time.perf_counter()
+    corpus = FormantCorpus(audio=audio)
+    per = REFENC_CLI_TRAIN + REFENC_CLI_HELD
+    for s_ in range(corpus.n_speakers):
+        (workdir / "wavs" / f"spk{s_:02d}").mkdir(parents=True)
+
+    def one(k):
+        rng = np.random.default_rng((seed, k))
+        spk = k // per
+        u = corpus.utterance(spk, int(rng.integers(*REFENC_CLI_FRAMES)), rng)
+        path = workdir / "wavs" / f"spk{spk:02d}" / f"u{k % per}.wav"
+        write_wav(path, u.wav, audio.sample_rate)
+        return f"{path}\tspk{spk:02d}", k % per < REFENC_CLI_TRAIN
+
+    with ThreadPoolExecutor(8) as ex:
+        rows = list(ex.map(one, range(corpus.n_speakers * per)))
+    lists = []
+    for train in (True, False):
+        path = workdir / ("train.tsv" if train else "held.tsv")
+        path.write_text("\n".join(r for r, t in rows if t == train) + "\n")
+        lists.append(path)
+    return lists[0], lists[1], time.perf_counter() - t1
+
+
+def cli_json(main, argv):
+    """(rc, the last stdout line as JSON, seconds) of a console script
+    called in this process."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    secs = time.perf_counter() - t1
+    print(out.getvalue(), end="", flush=True)
+    return rc, json.loads(out.getvalue().strip().splitlines()[-1]), secs
+
+
+def refenc_cli_phase(seed: int, workdir: Path, embed_ms_5d: float):
+    """Phase 5h (see the module docstring). Returns its fields."""
+    import numpy as np
+    import torch
+    from ttsx_torch import ops
+    from ttsx_torch.cli.main import bench_fns, main_bench
+    from ttsx_torch.cli.refenc import (embed_files, load_encoder,
+                                       main_refenc_eer, main_refenc_fuse,
+                                       main_refenc_latency, main_refenc_train)
+    from ttsx_torch.core.config import RefEncConfig, tts_cfg, zoo_cfg
+    from ttsx_torch.data import load_file_list, prefetch, read_wav
+    from ttsx_torch.data.synthetic import synthetic_batch
+    from ttsx_torch.dsp.stft import mel_spectrogram
+    from ttsx_torch.eval import evaluate_acoustic, load_pt2, microbenchmarks
+    from ttsx_torch.models.acoustic import AcousticModel
+    from ttsx_torch.train.engine import UnifiedTrainer
+    from ttsx_torch.train.observer import Observer
+    from ttsx_torch.train.refenc_trainer import RefEncTrainer
+    from ttsx_torch.weights import load_flax
+    from ttsx_torch.zoo import load_zoo_trees
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    rcfg = RefEncConfig()
+    train_list, held_list, corpus_s = formant_lists(seed, workdir,
+                                                    rcfg.audio)
+
+    # refenc-train, with the loader's waits in next() and each train step
+    # (the card synchronized around it) timed
+    waits, steps_ms, loaders = [], [], []
+    next_, step_ = prefetch.WavBatchLoader.next, RefEncTrainer.train_step
+
+    def timed_next(self, timeout_ms=30000):
+        t1 = time.perf_counter()
+        out = next_(self, timeout_ms)
+        waits.append(time.perf_counter() - t1)
+        loaders[:] = [self]
+        return out
+
+    def timed_step(self, *a, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = step_(self, *a, **kw)
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    ckpt = workdir / "run" / "checkpoints"
+    prefetch.WavBatchLoader.next = timed_next
+    RefEncTrainer.train_step = timed_step
+    try:
+        rc, train, train_s = cli_json(main_refenc_train, [
+            str(train_list), "--eval-list", str(held_list),
+            "--max-steps", str(REFENC_CLI_STEPS),
+            "--eval-every", str(REFENC_CLI_EVAL), "--seed", str(seed),
+            "--output-dir", str(workdir / "run"), "--device", "cuda"])
+    finally:
+        prefetch.WavBatchLoader.next = next_
+        RefEncTrainer.train_step = step_
+    produced, consumed, decode_errors = loaders[0].stats()
+    if (rc, train["steps"], train["n_speakers"]) != (0, REFENC_CLI_STEPS, 12):
+        fail(f"refenc-train rc {rc}: {train}")
+    if not ((ckpt / "best" / "meta.json").exists()
+            and (ckpt / "final" / "meta.json").exists()):
+        fail(f"refenc-train left no best/ and final/ under {ckpt}")
+
+    # refenc-eer on the card and on the CPU, and the embeddings behind it
+    eer, embs = {}, {}
+    for dev in ("cuda", "cpu"):
+        rc, out, secs = cli_json(main_refenc_eer, [
+            str(held_list), "--checkpoint", str(ckpt), "--device", dev])
+        if rc:
+            fail(f"refenc-eer on {dev} rc {rc}")
+        eer[dev] = dict(out, seconds=secs)
+        embs[dev] = embed_files(load_encoder(rcfg, dev, 0, str(ckpt)),
+                                load_file_list(held_list), dev)[0]
+    emb_err = float(np.abs(embs["cuda"] - embs["cpu"]).max())
+
+    # refenc-fuse: the .pt2 program reloaded against the eager encoder
+    pt2 = workdir / "reference_encoder_exported.pt2"
+    rc, fuse, fuse_s = cli_json(main_refenc_fuse, [
+        "--checkpoint", str(ckpt), "--out", str(pt2), "--device", "cuda"])
+    enc = load_encoder(rcfg, "cuda", 0, str(ckpt))
+    wav, _ = read_wav(load_file_list(held_list)[0][0], rcfg.audio.sample_rate)
+    with torch.no_grad():
+        mel = mel_spectrogram(torch.as_tensor(wav[None], device="cuda"),
+                              rcfg.audio)[:, :REFENC_LATENCY_FRAMES]
+        export_err = float((load_pt2(pt2)(mel) - enc(mel)).abs().max())
+    if rc or not fuse["aot_compiled"]:
+        fail(f"refenc-fuse rc {rc}: {fuse}")
+
+    rc, latency, _ = cli_json(main_refenc_latency, ["--runs", "100",
+                                                    "--device", "cuda"])
+    rc_bench, bench, _ = cli_json(main_bench, ["--device", "cuda"])
+    model_fn, model_args, mlp, mlp_args, factor = bench_fns("cuda")
+    with torch.inference_mode():
+        graph = {"acoustic_ms": graph_ms(lambda: model_fn(*model_args)),
+                 "mlp_ms": graph_ms(lambda: mlp(*mlp_args))}
+    graph["ratio"] = graph["acoustic_ms"] / graph["mlp_ms"]
+    if rc or rc_bench != (0 if bench.get("pass") else 1):
+        fail(f"refenc-latency rc {rc}; ttsx-bench rc {rc_bench}: {bench}")
+
+    micro = {k: v["mean_s"] * 1e3
+             for k, v in microbenchmarks(device="cuda").items()}
+    # evaluate_acoustic: the zoo's acoustic model on two served batches
+    acfg = zoo_cfg().acoustic
+    tree = load_zoo_trees()["acoustic"]
+    rng = np.random.default_rng(seed)
+    batches = [dict(
+        text_emb=rng.standard_normal((ACOUSTIC_EVAL_BATCH, T,
+                                      acfg.text_emb_dim)).astype(np.float32),
+        prosody=rng.standard_normal((ACOUSTIC_EVAL_BATCH, T, acfg.cond_dim)
+                                    ).astype(np.float32),
+        emotion_probs=rng.dirichlet(np.ones(acfg.emotion_dim),
+                                    ACOUSTIC_EVAL_BATCH).astype(np.float32),
+        mel=rng.standard_normal((ACOUSTIC_EVAL_BATCH, T, acfg.mel_dim)
+                                ).astype(np.float32),
+        speaker=(0.5 * rng.standard_normal((ACOUSTIC_EVAL_BATCH,
+                                            acfg.speaker_dim))
+                 ).astype(np.float32),
+        speaker_id=np.arange(ACOUSTIC_EVAL_BATCH) + 2 * i)
+        for i, T in enumerate(ACOUSTIC_EVAL_FRAMES)]
+    acoustic = {dev: evaluate_acoustic(
+        load_flax(AcousticModel(acfg), tree).to(dev).eval(), batches)
+        for dev in ("cuda", "cpu")}
+    loss_rel = (abs(acoustic["cuda"]["val_loss"] - acoustic["cpu"]["val_loss"])
+                / abs(acoustic["cpu"]["val_loss"]))
+
+    # one engine step at phase 5c's cut under a counting observer
+    cfg = tts_cfg()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=CKPT_BATCH, grad_accum_steps=1, val_freq=0,
+        checkpoint_freq=0))
+    observed = []
+    obs = Observer(lambda stage, batch: observed.append(stage))
+    batch = synthetic_batch(cfg, batch=CKPT_BATCH, frames=OBSERVED_FRAMES,
+                            seed=seed)
+    tr = UnifiedTrainer(cfg, iter([]), None, device="cuda", observer=obs)
+    metrics = tr.train_step(batch)
+    stepped = sorted({k.split("/")[0] for k in metrics if "/" in k})
+    del tr
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    wait_s = float(sum(waits))
+    # whether a native (C-API) loader could be built here: Python's headers
+    python_h = str(Path(sysconfig.get_paths()["include"]) / "Python.h")
+    python_h = python_h if Path(python_h).exists() else None
+    fields = dict(
+        corpus=dict(speakers=12, train_per_speaker=REFENC_CLI_TRAIN,
+                    held_per_speaker=REFENC_CLI_HELD,
+                    frames=list(REFENC_CLI_FRAMES), host_s=corpus_s),
+        refenc_train=dict(train, seconds=train_s,
+                          step_ms_median=float(np.median(steps_ms)),
+                          step_ms=steps_ms,
+                          loader=dict(produced=produced, consumed=consumed,
+                                      decode_errors=decode_errors,
+                                      python_h=python_h,
+                                      next_calls=len(waits), wait_s=wait_s,
+                                      wait_share_of_run=wait_s / train_s,
+                                      wait_ms_max=max(waits) * 1e3)),
+        refenc_eer=dict(eer, embedding_max_abs_diff_card_vs_cpu=emb_err,
+                        tolerance=REFENC_EMB_TOL),
+        refenc_fuse=dict(fuse, seconds=fuse_s,
+                         reloaded_vs_eager_max_abs_err=export_err,
+                         tolerance=EXPORT_TOL),
+        refenc_latency=dict(latency, refenc_phase_embed_ms_batch1=embed_ms_5d),
+        bench=dict(bench, rc=rc_bench, factor=factor, graph_replay=graph),
+        microbenchmarks_ms=micro,
+        evaluate_acoustic=dict(acoustic, frames=list(ACOUSTIC_EVAL_FRAMES),
+                               val_loss_rel_diff=loss_rel,
+                               tolerance=ACOUSTIC_EVAL_RTOL),
+        observed_step=dict(stages=stepped, calls=obs.calls,
+                           errors=obs.errors, observed=observed),
+        launches=launches)
+    if eer["cuda"]["eer"] != eer["cpu"]["eer"]:
+        fail(f"refenc-eer card {eer['cuda']} vs CPU {eer['cpu']}")
+    if not emb_err <= REFENC_EMB_TOL:
+        fail(f"refenc-eer embeddings card vs CPU differ by {emb_err}")
+    if not export_err <= EXPORT_TOL:
+        fail(f"the reloaded .pt2 program differs from the encoder by "
+             f"{export_err}")
+    if not loss_rel <= ACOUSTIC_EVAL_RTOL:
+        fail(f"evaluate_acoustic val_loss card vs CPU: {acoustic}")
+    if obs.errors or obs.calls != len(stepped) or observed != stepped:
+        fail(f"observer calls {observed} ({obs.errors} errors) for the "
+             f"stages stepped {stepped}")
+    if any(launches.values()):
+        fail(f"the refenc console scripts launched a kernel: {launches}")
+    return fields
+
+
 def time_gan(voc, batch):
     """ms of the vocoder's disc_step with R1 and without and of its
     gen_step, plain and with ``remat`` (each FiLM residual block
@@ -2827,7 +3102,8 @@ def main(argv=None) -> int:
 
     # -- 5d. stage 1, the zoo's speaker encoder: card vs CPU, its trainer
     t0 = time.time()
-    emit("refenc", t0, **refenc_phase(args.seed))
+    refenc = refenc_phase(args.seed)
+    emit("refenc", t0, **refenc)
 
     # -- 5e. stage 2, the zoo's prosody predictor and the emotion head
     t0 = time.time()
@@ -2842,6 +3118,13 @@ def main(argv=None) -> int:
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         emit("observer", t0, **observer_phase(args.seed, Path(tmp)))
+
+    # -- 5h. the speaker encoder's console scripts, ttsx-bench, the eval
+    # package and the engine's observer hook
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        emit("refenc_cli", t0, **refenc_cli_phase(
+            args.seed, Path(tmp), refenc["embed_ms_batch1"]))
 
     # -- 6. timing: K3 at each batch shape the trainer collated (the
     # largest first) and at the clip, K1 and K2 at the stage shapes of

@@ -8,19 +8,24 @@ encoder and prosody predictor on the card against the CPU, and a
 checkpoint of the three train blocks round-tripped on the card and onto
 the CPU; the diarizer's zoo slice encoder on the card against the CPU,
 its production controller end to end on the card, and batch mode with 2
-workers on the card.
+workers on the card; the speaker encoder's console scripts (a card
+checkpoint's EER on the card and the CPU) and its ``.pt2`` export
+reloaded on the card.
 
-Each test skips without a card, but two: the stage 1 and 2 entry points
-(trainers, zoo loaders, datasets and corpus features) and the diarizer's
+Each test skips without a card, but four: the stage 1 and 2 entry points
+(trainers, zoo loaders, datasets and corpus features), the diarizer's
 (slicer, embedder, overlap net and screen, GNN training, controller,
-zoo loader, CLI) refuse to run without a card unless the CPU is asked
-for, which runs where there is none. This file imports neither JAX nor the
-JAX package, so on a machine without JAX it runs on its own:
+zoo loader, CLI), the observer's and the speaker encoder's console
+scripts with ``ttsx-bench`` refuse to run without a card unless the CPU
+is asked for, which runs where there is none. This file imports neither
+JAX nor the JAX package, so on a machine without JAX it runs on its own:
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
 (``--noconftest`` because tests/conftest.py sets up JAX.)
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -861,3 +866,79 @@ def test_observer_job_on_card(cuda, tmp_path):
                 for dev in ("cuda", "cpu")]
         assert [t["label"] for t in tags[0]] == [t["label"] for t in tags[1]]
     assert not any(ops.launch_counts().values())
+
+
+# ------------------------------------------- the speaker encoder's scripts
+def _cli_json(main, argv, capsys):
+    assert main(argv) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_refenc_entry_points_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA card")
+    from ttsx_torch.cli.main import (main_bench, main_refenc_eer,
+                                     main_refenc_fuse, main_refenc_latency,
+                                     main_refenc_train)
+    from ttsx_torch.eval import microbenchmarks
+    lst = tmp_path / "list.tsv"
+    lst.write_text("x.wav\ta\n")
+    for call in (lambda: main_refenc_train([str(lst)]),
+                 lambda: main_refenc_eer([str(lst), "--allow-random"]),
+                 lambda: main_refenc_latency([]),
+                 lambda: main_refenc_fuse(["--out",
+                                           str(tmp_path / "x.pt2")]),
+                 lambda: main_bench([]), microbenchmarks):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert not (tmp_path / "x.pt2").exists()
+
+
+def test_refenc_eer_of_a_card_checkpoint_on_card_and_cpu(cuda, tmp_path,
+                                                         capsys):
+    """refenc-train on the card (2 steps, batch 2, 0.8 s crops of a
+    FormantCorpus tree), then refenc-eer of its checkpoint on the card and
+    on the CPU: the same EER, embeddings within 1e-5."""
+    from ttsx_torch.cli.main import main_refenc_eer, main_refenc_train
+    from ttsx_torch.cli.refenc import embed_files, load_encoder
+    from ttsx_torch.core.config import RefEncConfig
+    from ttsx_torch.data import load_file_list, write_wav
+    from ttsx_torch.data.formantcorpus import FormantCorpus
+    corpus = FormantCorpus(n_speakers=3, audio=AudioConfig())
+    lines = []
+    for i, u in enumerate(corpus.utterances(3, 120, seed=4)):
+        path = tmp_path / f"u{i}.wav"
+        write_wav(path, u.wav, 22050)
+        lines.append(f"{path}\tspk{u.speaker}")
+    lst = tmp_path / "list.tsv"
+    lst.write_text("\n".join(lines))
+    run = _cli_json(main_refenc_train, [
+        str(lst), "--max-steps", "2", "--batch", "2", "--crop-seconds", "0.8",
+        "--workers", "1", "--output-dir", str(tmp_path / "run")], capsys)
+    assert run["steps"] == 2 and run["n_speakers"] == 3
+    ckpt = str(tmp_path / "run" / "checkpoints")
+    eer = {dev: _cli_json(main_refenc_eer, [str(lst), "--checkpoint", ckpt,
+                                            "--device", dev], capsys)
+           for dev in ("cuda", "cpu")}
+    assert eer["cuda"] == eer["cpu"] and eer["cpu"]["n"] == 9
+    items = load_file_list(lst)
+    embs = [embed_files(load_encoder(RefEncConfig(), dev, 0, ckpt), items,
+                        dev)[0] for dev in ("cuda", "cpu")]
+    assert float(np.abs(embs[0] - embs[1]).max()) <= 1e-5
+
+
+def test_pt2_export_reloads_on_card(cuda, tmp_path):
+    """The full-width encoder exported on the card reloads there and gives
+    the eager encoder's embedding within 1e-5."""
+    from ttsx_torch.core.config import RefEncConfig
+    from ttsx_torch.cli.refenc import load_encoder
+    from ttsx_torch.eval import export_reference_encoder, load_pt2
+    enc = load_encoder(RefEncConfig(), "cuda", 3)
+    path = tmp_path / "enc.pt2"
+    assert len(export_reference_encoder(enc, path)) == path.stat().st_size
+    program = load_pt2(path)
+    mel = _randn(cuda, 1, 172, 80)
+    with torch.no_grad():
+        got, want = program(mel), enc(mel)
+    assert got.device.type == "cuda"
+    assert float((got - want).abs().max()) <= 1e-5

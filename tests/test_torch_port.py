@@ -31,7 +31,12 @@ names = [m.name for m in pkgutil.walk_packages(ttsx_torch.__path__,
                                                "ttsx_torch.")]
 assert {"ttsx_torch.pipeline.diarizer.controller",
         "ttsx_torch.pipeline.orchestrator", "ttsx_torch.pipeline.asr",
-        "ttsx_torch.cli.observer"} <= set(names)
+        "ttsx_torch.cli.observer", "ttsx_torch.cli.refenc",
+        "ttsx_torch.cli.bench", "ttsx_torch.eval.benchmarks",
+        "ttsx_torch.eval.export", "ttsx_torch.eval.acoustic_eval",
+        "ttsx_torch.data.prefetch", "ttsx_torch.data.formantcorpus",
+        "ttsx_torch.train.observer",
+        "ttsx_torch.utils.check_file_sizes"} <= set(names)
 for n in names:
     importlib.import_module(n)
 import chip_smoke

@@ -388,3 +388,48 @@ def test_reference_observer_runs_the_zoo_predictor_in_the_wrong_config(
     assert gap["model_f0"] > 0.1 and gap["mfcc"] > 0.1
     for k in ("model_f0", "mfcc"):
         np.testing.assert_allclose(port[k], right[k], rtol=0, atol=0.02)
+
+
+def test_refenc_cli_chain_beside_reference(tmp_path, capsys):
+    """The reference's ``refenc-train -> eer -> fuse`` console scripts
+    and the port's on the same FormantCorpus list (4 steps, batch 2, 0.8
+    s crops, EER every 2 steps): the same JSON keys, steps and speaker
+    counts, an EER of every file on each side, and a written export (the
+    reference's StableHLO, the port's ``.pt2``). The reference's eager
+    encoder runs at full width: about a minute here."""
+    from ttsx.cli.main import main_refenc_eer as jeer
+    from ttsx.cli.main import main_refenc_fuse as jfuse
+    from ttsx.cli.main import main_refenc_train as jtrain
+    from ttsx_torch.cli.main import (main_refenc_eer, main_refenc_fuse,
+                                     main_refenc_train)
+    from test_torch_refenc_cli import formant_list
+    lst = formant_list(tmp_path, 2, 3, 110)
+    out = {}
+    for name, (train, eer, fuse) in (("ref", (jtrain, jeer, jfuse)),
+                                     ("port", (main_refenc_train,
+                                               main_refenc_eer,
+                                               main_refenc_fuse))):
+        run = tmp_path / name
+        args = ["--device", "cpu", "--output-dir", str(run)]
+        got = []
+        for main, argv in (
+                (train, [str(lst), "--eval-list", str(lst), "--max-steps",
+                         "4", "--batch", "2", "--crop-seconds", "0.8",
+                         "--eval-every", "2", "--workers", "1"]),
+                (eer, [str(lst), "--checkpoint", str(run / "checkpoints")]),
+                (fuse, ["--checkpoint", str(run / "checkpoints"), "--out",
+                        str(run / "encoder.export")])):
+            assert main(argv + args) == 0
+            got.append(json.loads(
+                capsys.readouterr().out.strip().splitlines()[-1]))
+        out[name] = got
+    print(json.dumps(out))
+    for ref, port in zip(out["ref"], out["port"]):
+        assert set(ref) == set(port)
+    (rt, re_, rf), (pt, pe, pf) = out["ref"], out["port"]
+    assert rt["steps"] == pt["steps"] == 4
+    assert rt["n_speakers"] == pt["n_speakers"] == 2
+    assert re_["n"] == pe["n"] == 6
+    assert 0.0 <= pe["eer"] <= 1.0 and 0.0 <= re_["eer"] <= 1.0
+    assert rf["aot_compiled"] and pf["aot_compiled"]
+    assert rf["bytes"] > 0 and pf["bytes"] > 0

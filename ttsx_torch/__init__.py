@@ -1,18 +1,22 @@
 """PyTorch/CUDA port of ttsx's text->waveform synthesis chain and its
 trainer (acoustic, refiner and the vocoder GAN, with checkpoints), of
 stages 1 and 2 (the speaker encoder and the prosody predictor with their
-trainers), and of the ingestion pipeline's speaker diarizer.
+trainers and console scripts), and of the ingestion pipeline (the
+speaker diarizer and the observer job).
 
-Layout mirrors ``ttsx``: ``core`` (configs), ``nn`` (layers), ``models``
-(speaker encoder, prosody, acoustic, refiner, vocoder, discriminators,
-pipeline), ``ops`` (hand-written CUDA kernels with their plain PyTorch
-versions), ``dsp`` and ``data`` (the trainers' data paths), ``train``
-(blocks, engine, checkpoints, the stage-1/2 trainers), ``eval`` (EER,
-DER), ``pipeline`` (the stage contract, the diarizer), ``utils`` (logs,
-figures), ``cli``, ``weights`` (flax tree / slim npz -> state dicts), ``zoo``,
-``serve`` and ``streaming``. The serving surface is exported here, imported on
-first use as in ``ttsx``. Importing the package loads no kernel and needs
-neither a card nor a compiler.
+Layout mirrors ``ttsx``: ``core`` (configs, YAML / JSON files), ``nn``
+(layers), ``models`` (speaker encoder, prosody, acoustic, refiner,
+vocoder, discriminators, pipeline), ``ops`` (hand-written CUDA kernels
+with their plain PyTorch versions), ``dsp`` and ``data`` (the trainers'
+data paths, the prefetching wav loader, the synthetic corpora),
+``train`` (blocks, engine and its observer hook, checkpoints, the
+stage-1/2 trainers), ``eval`` (EER, MCD, DER; timers and CI gates; the
+acoustic evaluation; ``torch.export`` programs), ``pipeline`` (the stage
+contract, the diarizer, the observer job), ``utils`` (logs, figures, the
+file-size gate), ``cli``, ``weights`` (flax tree / slim npz -> state
+dicts), ``zoo``, ``serve`` and ``streaming``. The serving surface is
+exported here, imported on first use as in ``ttsx``. Importing the
+package loads no kernel and needs neither a card nor a compiler.
 """
 __version__ = "0.1.0"
 

@@ -1,11 +1,15 @@
 """The port's command lines (``ttsx/cli/main.py``): ``main_train``, the
 acoustic, refiner and vocoder GAN trainer on a wav tree or on synthetic
 batches, ``main_synth``, text -> waveform, ``main_diarize``, the
-speaker diarizer, and ``main_observer``, the observer ingestion
-pipeline.
+speaker diarizer, ``main_observer``, the observer ingestion pipeline,
+and ``main_bench``, the CI latency gate; the speaker encoder's scripts
+(``main_refenc_*``, in ``ttsx_torch.cli.refenc``) are importable from
+here too. Each console script is ``ttsx-torch-<name>`` in
+``pyproject.toml``. A ``--config`` is YAML or JSON by its suffix
+(``core.config.load_config``).
 
     python -m ttsx_torch.cli.main --data-root DIR [--max-steps N]
-        [--config cfg.json] [--output-dir out] [--device cuda|cpu]
+        [--config cfg.yaml|cfg.json] [--output-dir out] [--device cuda|cpu]
         [--blocks acoustic,refiner,vocoder] [--resume]
 
 With ``--data-root`` the path is: ``TTSDataset`` -> ``TTSCollator`` (mel
@@ -30,7 +34,7 @@ collated wav (cut to whole generator hops:
 
     python -m ttsx_torch.cli.synth [--zoo [DIR]] [--sde] [--text T]
         [--frames N] [--out synth.wav] [--seed S] [--device cuda|cpu]
-        [--config cfg.json] [--checkpoint DIR]
+        [--config cfg.yaml|cfg.json] [--checkpoint DIR]
 
 ``main_synth`` (``python -m ttsx_torch.cli.synth``, as the reference's
 ``ttsx-synth``) synthesizes ``--frames`` mel frames of ``--text`` with the
@@ -76,6 +80,15 @@ markers, each job under ``--output-dir``/<name>, until SIGINT or SIGTERM
 (the reference's loop waits for a ``KeyboardInterrupt`` that its own
 signal handler keeps from coming, so it never returns). ``--config`` is
 parsed and not used, as in the reference.
+
+    python -m ttsx_torch.cli.bench [--device cuda|cpu] [--seed S]
+
+``main_bench`` (as the reference's ``ttsx-bench``) times the default
+``AcousticConfig``'s forward at batch 2 x 128 frames against a
+``conformer_layers``-deep ReLU MLP (``bench_fns``), both fresh inits,
+eager and under ``inference_mode``, through ``eval.ci_latency_gate`` at
+``ci_latency_factor``: it prints ``{"ratio", "pass": true}`` and returns
+0, or ``{"pass": false, "error"}`` and returns 1.
 """
 from __future__ import annotations
 
@@ -86,6 +99,26 @@ from pathlib import Path
 from typing import Dict, Iterator
 
 import numpy as np
+
+
+def add_common_args(parser: argparse.ArgumentParser
+                    ) -> argparse.ArgumentParser:
+    """The reference's shared ``--device`` / ``--seed`` / ``--output-dir``
+    (``--device`` cuda by default)."""
+    parser.add_argument("--device", default="cuda", help="cuda | cpu")
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--output-dir", default="./output")
+    return parser
+
+
+def device_from_args(args):
+    """``resolve_device(args.device)`` (raises without a card unless
+    ``cpu``), with the port's f32 numerics set on a card."""
+    from ttsx_torch.core.device import resolve_device, set_f32_numerics
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        set_f32_numerics()
+    return device
 
 
 def data_streams(cfg, data_root: str, device, start: int = 0):
@@ -130,7 +163,8 @@ def data_streams(cfg, data_root: str, device, start: int = 0):
 
 def main_train(argv=None) -> int:
     p = argparse.ArgumentParser("ttsx-torch-train")
-    p.add_argument("--config", help="TTSXConfig JSON (reference field names)")
+    p.add_argument("--config", help="TTSXConfig YAML/JSON (reference field "
+                   "names)")
     p.add_argument("--data-root")
     p.add_argument("--synthetic", action="store_true",
                    help="train on synthetic batches (smoke mode)")
@@ -142,16 +176,12 @@ def main_train(argv=None) -> int:
                    help="restore the 'last' checkpoint of --output-dir")
     args = p.parse_args(argv)
 
-    from ttsx_torch.core.config import TTSXConfig, from_dict
-    from ttsx_torch.core.device import resolve_device, set_f32_numerics
+    from ttsx_torch.core.config import TTSXConfig, load_config
     from ttsx_torch.train.callbacks import JSONLLogger, StepTimeArtifact
     from ttsx_torch.train.engine import UnifiedTrainer
     blocks = [b.strip() for b in args.blocks.split(",") if b.strip()]
-    cfg = (from_dict(TTSXConfig, json.loads(Path(args.config).read_text()))
-           if args.config else TTSXConfig())
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        set_f32_numerics()
+    cfg = load_config(args.config) if args.config else TTSXConfig()
+    device = device_from_args(args)
 
     out = Path(args.output_dir)
     start = 0
@@ -190,7 +220,7 @@ def main_synth(argv=None) -> int:
     p.add_argument("--frames", type=int, default=256)
     p.add_argument("--checkpoint", metavar="DIR",
                    help="load the 'best' checkpoint of a training run")
-    p.add_argument("--config", help="TTSXConfig JSON of the fresh init")
+    p.add_argument("--config", help="TTSXConfig YAML/JSON of the fresh init")
     p.add_argument("--zoo", nargs="?", const="", metavar="DIR",
                    help="load the git-tracked pretrained zoo exports "
                         "(default dir: eval_results/zoo) with its config")
@@ -202,20 +232,16 @@ def main_synth(argv=None) -> int:
     args = p.parse_args(argv)
 
     import torch
-    from ttsx_torch.core.config import TTSXConfig, from_dict
-    from ttsx_torch.core.device import resolve_device, set_f32_numerics
+    from ttsx_torch.core.config import TTSXConfig, load_config
     from ttsx_torch.data.dataset import TextEncoder, write_wav
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        set_f32_numerics()
+    device = device_from_args(args)
     if args.zoo is not None:
         from ttsx_torch.zoo import load_pipeline
         pipe, _ = load_pipeline(zoo_dir=args.zoo or None, device=device)
     else:
         from ttsx_torch.models.pipeline import TTSPipeline
         from ttsx_torch.nn.init import fresh_init_
-        cfg = (from_dict(TTSXConfig, json.loads(Path(args.config).read_text()))
-               if args.config else TTSXConfig())
+        cfg = load_config(args.config) if args.config else TTSXConfig()
         pipe = fresh_init_(TTSPipeline(cfg),
                            torch.Generator().manual_seed(args.seed)).to(device)
     loaded = {}
@@ -252,11 +278,8 @@ def main_observer(argv=None) -> int:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    from ttsx_torch.core.device import resolve_device, set_f32_numerics
     from ttsx_torch.pipeline import ObserverPipeline, watch
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        set_f32_numerics()
+    device = device_from_args(args)
     if args.job:
         pipe = ObserverPipeline(git_repo=args.git_repo, device=device)
         summary = pipe.run_job(args.job, args.output_dir)
@@ -287,13 +310,10 @@ def main_diarize(argv=None) -> int:
     args = p.parse_args(argv)
 
     import logging
-    from ttsx_torch.core.device import resolve_device, set_f32_numerics
     from ttsx_torch.pipeline.diarizer import DiarizerController, ReIDMemory
     from ttsx_torch.pipeline.diarizer.controller import job_ids
     from ttsx_torch.utils.logs import attach_rotating_handler
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        set_f32_numerics()
+    device = device_from_args(args)
     attach_rotating_handler(logging.getLogger("ttsx_torch.diarizer"),
                             Path(args.output_dir) / "diarizer.log")
     memory = ReIDMemory()
@@ -320,5 +340,67 @@ def main_diarize(argv=None) -> int:
     return 0 if ok else 1
 
 
+def bench_fns(device, seed: int = 42):
+    """``main_bench``'s two calls: (the default ``AcousticConfig``'s
+    forward, its mel, and its inputs at batch 2 x 128 frames; the
+    ``conformer_layers``-deep ReLU MLP of ``hidden_channels`` and a
+    ``mel_dim`` head, and its input, the same text embeddings; the gate's
+    factor ``ci_latency_factor``), both models fresh inits seeded
+    ``seed`` on ``device`` in eval mode."""
+    import torch
+    from torch import nn
+    from ttsx_torch.core.config import AcousticConfig
+    from ttsx_torch.models.acoustic import AcousticModel
+    from ttsx_torch.nn.init import fresh_init_
+    from ttsx_torch.nn.layers import Dense
+
+    cfg = AcousticConfig()
+    gen = torch.Generator().manual_seed(seed)
+    model = fresh_init_(AcousticModel(cfg), gen).to(device).eval()
+    B, T = 2, 128
+    text = torch.zeros(B, T, cfg.text_emb_dim, device=device)
+    pros = torch.zeros(B, T, cfg.cond_dim, device=device)
+    emo = torch.full((B, cfg.emotion_dim), 1 / cfg.emotion_dim,
+                     device=device)
+    layers, width = [], cfg.text_emb_dim
+    for _ in range(cfg.conformer_layers):
+        layers += [Dense(width, cfg.hidden_channels), nn.ReLU()]
+        width = cfg.hidden_channels
+    mlp = fresh_init_(nn.Sequential(*layers, Dense(width, cfg.mel_dim)),
+                      gen).to(device).eval()
+    return (lambda *a: model(*a).mel, (text, pros, emo), mlp, (text,),
+            cfg.ci_latency_factor)
+
+
+def main_bench(argv=None) -> int:
+    p = argparse.ArgumentParser("ttsx-torch-bench")
+    add_common_args(p)
+    args = p.parse_args(argv)
+    device = device_from_args(args)
+
+    import torch
+    from ttsx_torch.eval.benchmarks import CIGateError, ci_latency_gate
+    model_fn, model_args, mlp, mlp_args, factor = bench_fns(device,
+                                                            args.seed)
+    try:
+        with torch.inference_mode():
+            res = ci_latency_gate(model_fn, mlp, model_args, mlp_args,
+                                  factor=factor)
+    except CIGateError as e:
+        print(json.dumps({"pass": False, "error": str(e)}))
+        return 1
+    print(json.dumps({"ratio": res["ratio"], "pass": True}))
+    return 0
+
+
 if __name__ == "__main__":
     sys.exit(main_train())
+
+
+def __getattr__(name: str):
+    """``main_refenc_*`` from ``ttsx_torch.cli.refenc``, imported on first
+    use (that module imports this one)."""
+    if name.startswith("main_refenc_"):
+        from ttsx_torch.cli import refenc
+        return getattr(refenc, name)
+    raise AttributeError(name)

@@ -10,7 +10,8 @@ holding the synthesis chain's, its trainers' and the pipeline's (the
 reference's ``mesh`` is not carried yet). Field
 names and defaults are the reference's, so a dict written by
 ``ttsx.core.config.to_dict`` loads here through ``from_dict`` (keys this
-tree does not carry are ignored) and back.
+tree does not carry are ignored) and back; ``save_config`` and
+``load_config`` write and read such a dict as YAML or JSON.
 
 In this package ``VocoderConfig.use_pallas_upsample`` and
 ``use_pallas_resblock_stack`` select the hand-written CUDA kernels
@@ -20,7 +21,9 @@ kept so configs stay interchangeable.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field, fields, is_dataclass
+from pathlib import Path
 from typing import Any, Optional, Tuple
 
 
@@ -311,6 +314,32 @@ def from_dict(cls, data: dict):
         else:
             kwargs[f.name] = v
     return cls(**kwargs)
+
+
+def save_config(cfg: Any, path: str | Path) -> None:
+    """``to_dict(cfg)`` as YAML for a ``.yaml`` / ``.yml`` path (``yaml``
+    imported here, its ``ImportError`` raised where it is missing), else
+    as JSON."""
+    path = Path(path)
+    data = to_dict(cfg)
+    if path.suffix in (".yaml", ".yml"):
+        import yaml
+        path.write_text(yaml.safe_dump(data, sort_keys=False))
+    else:
+        path.write_text(json.dumps(data, indent=2))
+
+
+def load_config(path: str | Path, cls=TTSXConfig):
+    """``from_dict(cls, ...)`` of a YAML (by suffix, as ``save_config``)
+    or JSON file."""
+    path = Path(path)
+    text = path.read_text()
+    if path.suffix in (".yaml", ".yml"):
+        import yaml
+        data = yaml.safe_load(text)
+    else:
+        data = json.loads(text)
+    return from_dict(cls, data)
 
 
 def tts_cfg(levels: int = 2) -> TTSXConfig:

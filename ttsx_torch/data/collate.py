@@ -72,6 +72,21 @@ def speed_perturb(wav: np.ndarray, rng: np.random.Generator,
                      wav).astype(np.float32)
 
 
+def load_noise_bank(directory, target_sr: int, limit: int = 64
+                    ) -> List[np.ndarray]:
+    """The first ``limit`` wavs under ``directory`` (sorted, recursive) at
+    ``target_sr``, empty ones left out: a bank of noises for the
+    augments."""
+    from pathlib import Path
+    from ttsx_torch.data.dataset import read_wav
+    bank = []
+    for p in sorted(Path(directory).glob("**/*.wav"))[:limit]:
+        wav, _ = read_wav(p, target_sr)
+        if len(wav):
+            bank.append(wav)
+    return bank
+
+
 class AugmentationPipeline:
     """The augments in a random order, each applied with probability p."""
 

@@ -3,7 +3,9 @@
 Discovers ``<root>/<speaker>/<domain>/<style>/*.wav`` with a parallel
 transcript tree and returns per-item dicts: wav, text ids, a sentence
 embedding and the speaker / domain / style ids. Mel, f0 and energy are
-computed per batch by the collator.
+computed per batch by the collator. Also the speaker encoder's
+``path<TAB>speaker`` manifests (``load_file_list``) and its
+speaker-balanced batch sampler.
 """
 from __future__ import annotations
 
@@ -165,3 +167,45 @@ class TTSDataset:
             "domain_id": self.dom2id[it["domain"]],
             "style_id": self.sty2id[it["style"]],
         }
+
+
+def load_file_list(list_path: str | Path) -> List[Tuple[str, str]]:
+    """(path, speaker) pairs of a manifest: one ``path<TAB>speaker`` (or
+    ``path speaker``) per line; blank lines and ``#`` comments skipped, a
+    line without a speaker gives ``"unknown"``."""
+    out = []
+    for line in Path(list_path).read_text().splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        parts = line.split("\t") if "\t" in line else line.rsplit(" ", 1)
+        out.append((parts[0], parts[1] if len(parts) > 1 else "unknown"))
+    return out
+
+
+class SpeakerBalancedSampler:
+    """Batches of ``spk_per_batch`` speakers x ``utts_per_spk`` item
+    indices, drawn without replacement within a batch from the speakers
+    that have enough items."""
+
+    def __init__(self, speaker_ids: Sequence[int], spk_per_batch: int,
+                 utts_per_spk: int, seed: int = 0):
+        self.by_spk: Dict[int, List[int]] = {}
+        for i, s in enumerate(speaker_ids):
+            self.by_spk.setdefault(int(s), []).append(i)
+        self.spk_per_batch = spk_per_batch
+        self.utts_per_spk = utts_per_spk
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self):
+        speakers = [s for s, items in self.by_spk.items()
+                    if len(items) >= self.utts_per_spk]
+        while len(speakers) >= self.spk_per_batch:
+            chosen = self.rng.choice(speakers, self.spk_per_batch,
+                                     replace=False)
+            batch = []
+            for s in chosen:
+                batch.extend(self.rng.choice(self.by_spk[s],
+                                             self.utts_per_spk,
+                                             replace=False).tolist())
+            yield batch

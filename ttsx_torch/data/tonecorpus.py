@@ -21,18 +21,7 @@ import torch
 
 from ttsx_torch.core.config import AudioConfig
 from ttsx_torch.core.device import resolve_device
-
-
-def log_mel_to_cepstra(log_mel: np.ndarray, n_mfcc: int = 13) -> np.ndarray:
-    """Orthonormal DCT-II coefficients 1..n_mfcc of log-mel frames [T, M]
-    (``ttsx/eval/metrics.py``), float64."""
-    log_mel = np.asarray(log_mel, np.float64)
-    M = log_mel.shape[-1]
-    n = np.arange(M)
-    k = np.arange(1, n_mfcc + 1)
-    basis = np.cos(np.pi * (n[None, :] + 0.5) * k[:, None] / M) \
-        * np.sqrt(2.0 / M)
-    return log_mel @ basis.T
+from ttsx_torch.eval.metrics import log_mel_to_cepstra
 
 
 def _smooth_random(rng: np.random.Generator, n: int, smooth: int = 3,

@@ -1,5 +1,6 @@
 """Metrics of ``ttsx/eval/metrics.py``, numpy on the host: the speaker-
-verification EER and, for the diarizer, the overlap-aware DER (with a
+verification EER, the mel-cepstral distortion (MCD, frames paired by
+index or by DTW) and, for the diarizer, the overlap-aware DER (with a
 collar), cluster purity and the silhouette score."""
 from __future__ import annotations
 
@@ -36,6 +37,60 @@ def all_pairs_eer(embeddings: np.ndarray, speaker_ids: np.ndarray) -> float:
     iu = np.triu_indices(len(e), k=1)
     labels = (speaker_ids[iu[0]] == speaker_ids[iu[1]]).astype(np.int64)
     return compute_eer(sim[iu], labels)
+
+
+def log_mel_to_cepstra(log_mel: np.ndarray, n_mfcc: int = 13) -> np.ndarray:
+    """Orthonormal DCT-II of a log-mel sequence [T, M] -> cepstra [T, n_mfcc]
+    coefficients c_1..c_n (c_0, the frame energy, excluded per standard MCD
+    practice)."""
+    log_mel = np.asarray(log_mel, np.float64)
+    M = log_mel.shape[-1]
+    n = np.arange(M)
+    k = np.arange(1, n_mfcc + 1)
+    basis = np.cos(np.pi * (n[None, :] + 0.5) * k[:, None] / M) \
+        * np.sqrt(2.0 / M)                                   # [n_mfcc, M]
+    return log_mel @ basis.T
+
+
+def mel_cepstral_distortion(mel_a: np.ndarray, mel_b: np.ndarray,
+                            n_mfcc: int = 13, align: bool = False) -> float:
+    """Standard MCD (dB) between two log-mel sequences [T, n_mels]
+    (BASELINE.json fidelity metric).
+
+    DCTs each sequence to n_mfcc cepstral coefficients (excluding c0), then
+    applies 10/ln10 * sqrt(2 * sum_d (c_a - c_b)^2) averaged over frames.
+    With align=True the frame pairing comes from a DTW path over the
+    per-frame cepstral distance (for unaligned synthesis/reference pairs);
+    otherwise frames are paired by index with truncation to the shorter
+    sequence."""
+    ca = log_mel_to_cepstra(mel_a, n_mfcc)
+    cb = log_mel_to_cepstra(mel_b, n_mfcc)
+    K = 10.0 / np.log(10.0) * np.sqrt(2.0)
+    if not align:
+        t = min(len(ca), len(cb))
+        d = np.linalg.norm(ca[:t] - cb[:t], axis=1)
+        return float(K * np.mean(d))
+    # DTW over the full pairwise cepstral-distance matrix
+    D = np.linalg.norm(ca[:, None, :] - cb[None, :, :], axis=-1)
+    Ta, Tb = D.shape
+    acc = np.full((Ta + 1, Tb + 1), np.inf)
+    acc[0, 0] = 0.0
+    for i in range(1, Ta + 1):
+        prev = np.minimum(acc[i - 1, 1:], acc[i - 1, :-1])
+        row = acc[i]
+        row[0] = np.inf
+        for j in range(1, Tb + 1):
+            row[j] = D[i - 1, j - 1] + min(prev[j - 1], row[j - 1])
+    # path length = backtrack count; use average cost per step
+    i, j, steps, cost = Ta, Tb, 0, 0.0
+    while i > 0 and j > 0:
+        cost += D[i - 1, j - 1]
+        steps += 1
+        moves = [(acc[i - 1, j - 1], i - 1, j - 1),
+                 (acc[i - 1, j], i - 1, j),
+                 (acc[i, j - 1], i, j - 1)]
+        _, i, j = min(moves)
+    return float(K * cost / max(steps, 1))
 
 
 def _layered_grids(segments, spk_index, n: int, step: float):

@@ -50,7 +50,15 @@ Five departures from the reference, the first two reference defects:
   reference's ``main_train --resume`` restores into the empty state
   tree of a trainer that has not yet built its states, which raises).
 
-Not ported yet: the observer hook and the data-parallel mesh.
+An ``observer`` (``ttsx_torch.train.observer.Observer``) transforms
+each stage's batch before that stage's step, at every call site of the
+reference: each acoustic micro-batch, the refiner's and the vocoder's
+batch, and, with ``training=False``, the acoustic and refiner
+validation batches. It sees the batch as the engine holds it, a dict of
+tensors on the engine's device (``blocks.as_tensors``), and the step
+number ``state.global_step``.
+
+Not ported yet: the data-parallel mesh.
 """
 from __future__ import annotations
 
@@ -95,8 +103,10 @@ class UnifiedTrainer:
     def __init__(self, cfg: TTSXConfig, train_iter: Iterable[Dict],
                  val_iter=None, callbacks: Optional[List[Callback]] = None,
                  blocks: Iterable[str] = ("acoustic", "refiner", "vocoder"),
-                 checkpoint_dir: Optional[str] = None, device="cuda"):
+                 checkpoint_dir: Optional[str] = None, device="cuda",
+                 observer=None):
         self.cfg = cfg
+        self.observer = observer
         self.checkpoint_dir = checkpoint_dir
         self.device = resolve_device(device)
         self.train_iter = iter(train_iter)
@@ -115,6 +125,14 @@ class UnifiedTrainer:
             self.blocks[name] = BLOCKS[name](cfg, self.device,
                                              cfg.train.seed + i)
 
+    def _pre_forward(self, stage: str, batch: Dict,
+                     training: bool = True) -> Dict:
+        if self.observer is None:
+            return batch
+        return self.observer.pre_forward(stage, batch,
+                                         step=self.state.global_step,
+                                         training=training)
+
     def train_step(self, batch: Dict) -> Dict:
         t0 = time.perf_counter()
         cfg = self.cfg.train
@@ -126,17 +144,18 @@ class UnifiedTrainer:
         if "acoustic" in self.blocks:
             block = self.blocks["acoustic"]
             if cfg.grad_accum_steps > 1:
-                micro = [b]
+                micro = [self._pre_forward("acoustic", b)]
                 for _ in range(cfg.grad_accum_steps - 1):
                     try:
-                        micro.append(next(self.train_iter))
+                        micro.append(self._pre_forward("acoustic", as_tensors(
+                            next(self.train_iter), self.device)))
                     except StopIteration:
                         break
                 taken = len(micro)
                 out = block.train_step_accum(micro)
                 mel_pred = out["mel_pred"][0]
             else:
-                out = block.train_step(b)
+                out = block.train_step(self._pre_forward("acoustic", b))
                 mel_pred = out["mel_pred"]
             metrics.update({f"acoustic/{k}": float(v)
                             for k, v in out["metrics"].items()})
@@ -144,14 +163,14 @@ class UnifiedTrainer:
         if ("refiner" in self.blocks
                 and self.state.global_step % cfg.refiner_update_freq == 0):
             out = self.blocks["refiner"].train_step(
-                b, mel_pred, self.state.noise_scale, self.state.l1_weight)
+                self._pre_forward("refiner", b), mel_pred, self.state.noise_scale, self.state.l1_weight)
             metrics.update({f"refiner/{k}": float(v)
                             for k, v in out["metrics"].items()})
 
         if ("vocoder" in self.blocks
                 and self.state.global_step >= cfg.vocoder_freeze_until
                 and "wav" in b):
-            metrics.update(self._gan_step(b))
+            metrics.update(self._gan_step(self._pre_forward("vocoder", b)))
 
         self.state.global_step += 1
         self.state.batches += taken
@@ -204,10 +223,12 @@ class UnifiedTrainer:
             out = None
             mel_pred = b["mel"]  # refiner alone: refine the ground truth
             if "acoustic" in self.blocks:
-                out = self.blocks["acoustic"].val_step(b)
+                out = self.blocks["acoustic"].val_step(
+                    self._pre_forward("acoustic", b, training=False))
                 mel_pred = out["mel_pred"]
             if "refiner" in self.blocks:
-                out = self.blocks["refiner"].val_step(b, mel_pred)
+                out = self.blocks["refiner"].val_step(
+                    self._pre_forward("refiner", b, training=False), mel_pred)
             vals.append(float(out["val_l1"]))
         val_l1 = float(np.mean(vals)) if vals else float("inf")
         metrics = {"val_l1": val_l1}
