@@ -194,8 +194,9 @@ Run from the root of a checkout. Phases, one JSON line each:
    ``best`` and ``final`` written; each train step timed with the card
    synchronized, the loader's produced / consumed / failed-decode counts
    and the seconds spent waiting in its ``next`` (and their share of the
-   run), and where Python's ``Python.h`` is (a native loader's build
-   needs it; ``null`` if absent). ``main_refenc_eer --checkpoint`` on the card and on the CPU: the
+   run); the loader must be the native pthreads executor (``is_native``,
+   built at first use against Python's ``Python.h``, whose path is
+   printed). ``main_refenc_eer --checkpoint`` on the card and on the CPU: the
    same EER, the embeddings within ``REFENC_EMB_TOL``.
    ``main_refenc_fuse`` on the card: the reloaded ``.pt2`` program within
    ``EXPORT_TOL`` of the eager encoder on a held-out file's first 172
@@ -211,6 +212,20 @@ Run from the root of a checkout. Phases, one JSON line each:
    blocks at 5c's cut (batch 4, one micro-batch) on a synthetic batch
    under an ``Observer`` that records its calls: one call per stage
    stepped, in order, no error. No kernel launches.
+5i. parallel: a world-1 NCCL process group on card 0 (this process) and
+   a mesh over it (``make_mesh``; the world size, backend and layouts
+   printed): one engine step of the three blocks at 5c's cut (batch 4,
+   one micro-batch, a synthetic batch of ``OBSERVED_FRAMES``) under the
+   mesh against the same step without it, with cuDNN's and torch's
+   deterministic algorithms on, bitwise (within ``MESH_STEP_TOL`` where
+   an op on the path warns it has no deterministic implementation); phase
+   4's requests through ``SynthesisServer(mesh=..., bf16=False)`` at the
+   serving bucket: K1 and K2 4 launches each, the waveforms within
+   ``WAV_TOL`` of phase 4's; the time of an NCCL all-reduce of the
+   generator's gradient size (one rank: no link crossed), with its bytes.
+   With two cards or more, ``dryrun_multichip(2)`` (dp = 2) and
+   ``dryrun_multichip(2, tp=2)`` (band_tp) as NCCL ranks in processes of
+   their own, each equal to one rank.
 6. timing: CUDA-event times of each kernel beside its plain version (K1
    and K2 at the stage shapes above; K3 by graph replay, eager beside, at
    each batch shape the trainer collated and at the 10 s clip, with the
@@ -255,7 +270,8 @@ counts (``k4_cost``) and ``f32_bound_ms`` the f32 counts' alone; K5
 summed over the 12 blocks of the per-block generator route at batch 1
 (``ms`` from graph replay), launches on that route;
 each entry's ``ops_peak`` names the peak its operations bound uses and
-``timing`` how its ``ms`` was taken), the ``nvidia-smi`` line, and last
+``timing`` how its ``ms`` was taken; K1's and K2's ``mesh_launches``
+count their launches on phase 5i's bucket under the mesh), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero without the ``ok`` line. Without a CUDA card, or without the
 rest of the repository beside it, it exits non-zero at once.
@@ -263,6 +279,7 @@ rest of the repository beside it, it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -382,6 +399,8 @@ ACOUSTIC_EVAL_RTOL = 1e-5   # val_loss card vs CPU, relative
 ACOUSTIC_EVAL_FRAMES = (864, 600)   # two batches of served lengths
 ACOUSTIC_EVAL_BATCH = 2
 OBSERVED_FRAMES = 32    # the observed engine step's synthetic batch
+MESH_STEP_TOL = 1e-5    # engine step under the mesh vs without, where an op
+                        # on the path has no deterministic implementation
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -1936,8 +1955,6 @@ def state_diff(got, want):
 
 def checkpoint_phase(workdir: Path):
     """Phase 5c (see the module docstring). Returns its fields."""
-    import os
-    import warnings
     import torch
     from ttsx_torch import ops
     from ttsx_torch.cli.main import data_streams
@@ -1973,43 +1990,28 @@ def checkpoint_phase(workdir: Path):
         torch.cuda.synchronize()
         return tr, restore_ms
 
-    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
+    with deterministic_ops() as caught:
+        tr, _ = run(CKPT_STEPS)
+        want = {k: v.clone() for k, v in flatten(tr.block_states).items()}
+        want_run = {k: getattr(tr.state, k) for k in run_keys}
+        step_ms = [t * 1e3 for t in tr.state.step_times]
+        del tr
+        tr, _ = run(CKPT_STOP, directory=str(ckdir))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tr.save_checkpoint("timed")
+        save_ms = (time.perf_counter() - t1) * 1e3
+        del tr
+        tr, restore_ms = run(CKPT_STEPS, CKPT_STOP, str(ckdir))
+        bitwise, resumed_diff = state_diff(flatten(tr.block_states), want)
+        got_run = {k: getattr(tr.state, k) for k in run_keys}
+        del tr
+        nondet = nondeterministic(caught)
+        straight_diff = None
+        if nondet:
             tr, _ = run(CKPT_STEPS)
-            want = {k: v.clone() for k, v in flatten(tr.block_states).items()}
-            want_run = {k: getattr(tr.state, k) for k in run_keys}
-            step_ms = [t * 1e3 for t in tr.state.step_times]
+            straight_diff = state_diff(flatten(tr.block_states), want)[1]
             del tr
-            tr, _ = run(CKPT_STOP, directory=str(ckdir))
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            tr.save_checkpoint("timed")
-            save_ms = (time.perf_counter() - t1) * 1e3
-            del tr
-            tr, restore_ms = run(CKPT_STEPS, CKPT_STOP, str(ckdir))
-            bitwise, resumed_diff = state_diff(flatten(tr.block_states), want)
-            got_run = {k: getattr(tr.state, k) for k in run_keys}
-            del tr
-            nondet = sorted({str(w.message).split(" does not have")[0]
-                             for w in caught if "deterministic" in
-                             str(w.message)})
-            straight_diff = None
-            if nondet:
-                tr, _ = run(CKPT_STEPS)
-                straight_diff = state_diff(flatten(tr.block_states), want)[1]
-                del tr
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.backends.cudnn.deterministic = False
-        if cublas is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
     launches = ops.launch_counts()
     fields = dict(
         batch=CKPT_BATCH, grad_accum=1, steps=CKPT_STEPS, stop_at=CKPT_STOP,
@@ -2748,6 +2750,9 @@ def refenc_cli_phase(seed: int, workdir: Path, embed_ms_5d: float):
         prefetch.WavBatchLoader.next = next_
         RefEncTrainer.train_step = step_
     produced, consumed, decode_errors = loaders[0].stats()
+    is_native = loaders[0].is_native
+    if not is_native:
+        fail("refenc-train's loader did not take the native executor")
     if (rc, train["steps"], train["n_speakers"]) != (0, REFENC_CLI_STEPS, 12):
         fail(f"refenc-train rc {rc}: {train}")
     if not ((ckpt / "best" / "meta.json").exists()
@@ -2832,7 +2837,7 @@ def refenc_cli_phase(seed: int, workdir: Path, embed_ms_5d: float):
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     wait_s = float(sum(waits))
-    # whether a native (C-API) loader could be built here: Python's headers
+    # Python's headers, which the native loader's build reads
     python_h = str(Path(sysconfig.get_paths()["include"]) / "Python.h")
     python_h = python_h if Path(python_h).exists() else None
     fields = dict(
@@ -2844,6 +2849,7 @@ def refenc_cli_phase(seed: int, workdir: Path, embed_ms_5d: float):
                           step_ms=steps_ms,
                           loader=dict(produced=produced, consumed=consumed,
                                       decode_errors=decode_errors,
+                                      is_native=is_native,
                                       python_h=python_h,
                                       next_calls=len(waits), wait_s=wait_s,
                                       wait_share_of_run=wait_s / train_s,
@@ -2877,6 +2883,156 @@ def refenc_cli_phase(seed: int, workdir: Path, embed_ms_5d: float):
     if any(launches.values()):
         fail(f"the refenc console scripts launched a kernel: {launches}")
     return fields
+
+
+@contextlib.contextmanager
+def deterministic_ops():
+    """cuDNN and torch's deterministic algorithms (warnings only) inside
+    the block, which gets the warnings list (``nondeterministic`` reads
+    the ops without a deterministic implementation from it)."""
+    import os
+    import warnings
+    import torch
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+
+
+def nondeterministic(caught) -> list:
+    """The ops that warned they have no deterministic implementation."""
+    return sorted({str(w.message).split(" does not have")[0]
+                   for w in caught if "deterministic" in str(w.message)})
+
+
+def parallel_phase(seed: int, srv, reqs, wavs):
+    """Phase 5i (see the module docstring). Returns (its fields, the
+    kernel launches of the served bucket under the mesh)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ttsx_torch import ops
+    from ttsx_torch.core.config import tts_cfg
+    from ttsx_torch.core.mesh import make_mesh
+    from ttsx_torch.data.synthetic import synthetic_batch
+    from ttsx_torch.parallel.dryrun import dryrun_multichip
+    from ttsx_torch.parallel.spawn import free_port
+    from ttsx_torch.serve import SynthesisServer
+    from ttsx_torch.train.checkpoint import flatten
+    from ttsx_torch.train.engine import UnifiedTrainer
+    count = torch.cuda.device_count()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device="cuda")
+        backend = str(dist.get_backend())
+        # one engine step of the three blocks at 5c's cut, with the mesh
+        # and without, on one synthetic batch
+        cfg = tts_cfg()
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, batch_size=CKPT_BATCH, grad_accum_steps=1,
+            val_freq=0, checkpoint_freq=0))
+        batch = synthetic_batch(cfg, batch=CKPT_BATCH,
+                                frames=OBSERVED_FRAMES, seed=seed)
+        runs = {}
+        with deterministic_ops() as caught:
+            for name, m in (("mesh", mesh), ("plain", None)):
+                tr = UnifiedTrainer(cfg, iter([]), device="cuda", mesh=m)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                metrics = tr.train_step(batch)
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t1) * 1e3
+                metrics.pop("step_time_s")
+                runs[name] = (metrics, {k: v.clone() for k, v in
+                                        flatten(tr.block_states).items()},
+                              step_ms)
+                del tr
+            nondet = nondeterministic(caught)
+        bitwise, state_err = state_diff(runs["mesh"][1], runs["plain"][1])
+        metrics_equal = runs["mesh"][0] == runs["plain"][0]
+        stepped = sorted({k.split("/")[0] for k in runs["mesh"][0]
+                          if "/" in k})
+        finite = all(math.isfinite(v) for v in runs["mesh"][0].values())
+        entries = len(runs["plain"][1])
+        step_ms = {name: r[2] for name, r in runs.items()}
+        del runs
+
+        # the serving bucket at the zoo's width through the server under
+        # the mesh, against phase 4's mesh-less server
+        meshed = SynthesisServer(srv.pipe, device="cuda", max_batch=MAX_BATCH,
+                                 frames=FRAMES, bf16=False,
+                                 scale_stats=srv.scale_stats.cpu(),
+                                 mesh=mesh)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t1 = time.time()
+        got = meshed.serve_batch(reqs)
+        serve_s = time.time() - t1
+        launches = ops.launch_counts()
+        wav_err = max(float(np.abs(a - b).max()) for a, b in zip(got, wavs))
+        del meshed
+
+        # an NCCL all-reduce of the generator's gradient size
+        numel = sum(p.numel() for p in srv.pipe.generator.parameters())
+        allreduce_ms = mesh.time_all_reduce(numel)
+    finally:
+        dist.destroy_process_group()
+    layouts = ["dp=1 x tp=1 (world 1, in this process)"]
+    multi = {}
+    if count >= 2:
+        # two cards: dp = 2 and dp = 1 x tp = 2 (band_tp), NCCL ranks in
+        # their own processes, each against one rank
+        multi["dp2"] = dryrun_multichip(2)
+        multi["dp1_tp2"] = dryrun_multichip(2, tp=2)
+        layouts += ["dp=2 x tp=1 (2 processes)",
+                    "dp=1 x tp=2 band_tp (2 processes)"]
+    fields = dict(
+        world=1, backend=backend, device_count=count, layouts=layouts,
+        engine_step=dict(batch=CKPT_BATCH, frames=OBSERVED_FRAMES,
+                         stepped=stepped, finite=finite,
+                         metrics_equal=metrics_equal, entries=entries,
+                         bitwise_equal=bitwise, max_abs_diff=state_err,
+                         nondeterministic_ops=nondet,
+                         step_ms=step_ms,
+                         tolerance=MESH_STEP_TOL),
+        serve=dict(requests=list(REQUEST_FRAMES), serve_s=serve_s,
+                   launches=launches, wav_max_abs_err_vs_meshless=wav_err,
+                   wav_tolerance=WAV_TOL),
+        allreduce=dict(numel=numel, bytes=4 * numel, ms=allreduce_ms,
+                       gb_per_s=4 * numel / allreduce_ms / 1e6,
+                       note="one rank: NCCL's in-place all-reduce on one "
+                            "card, no link crossed"),
+        multi_card=multi)
+    if stepped != ["acoustic", "refiner", "vocoder"] or not finite:
+        fail(f"engine step under the mesh: stages {stepped}, finite {finite}")
+    if nondet:
+        if not state_err <= MESH_STEP_TOL:
+            fail(f"engine step under the mesh {state_err} from the step "
+                 f"without it ({nondet} nondeterministic)")
+    elif not (bitwise and metrics_equal):
+        fail(f"engine step under the mesh differs from the step without it "
+             f"by {state_err} with every op deterministic")
+    if launches != SERVE_LAUNCHES:
+        fail(f"launches on the served bucket under the mesh {launches}, "
+             f"want {SERVE_LAUNCHES}")
+    if not wav_err <= WAV_TOL:
+        fail(f"waveforms under the mesh differ from the mesh-less server's "
+             f"by {wav_err}")
+    return fields, launches
 
 
 def time_gan(voc, batch):
@@ -3126,6 +3282,12 @@ def main(argv=None) -> int:
         emit("refenc_cli", t0, **refenc_cli_phase(
             args.seed, Path(tmp), refenc["embed_ms_batch1"]))
 
+    # -- 5i. the mesh: an NCCL group, an engine step and the served bucket
+    # under it against the same without it
+    t0 = time.time()
+    parallel, mesh_launches = parallel_phase(args.seed, srv, reqs, wavs)
+    emit("parallel", t0, **parallel)
+
     # -- 6. timing: K3 at each batch shape the trainer collated (the
     # largest first) and at the clip, K1 and K2 at the stage shapes of
     # batch 1 and of the serving bucket
@@ -3216,7 +3378,8 @@ def main(argv=None) -> int:
             bound_by=max(main_rows[name], key=lambda r: r["bound_ms"])[
                 "bound_by"].split()[0],
             library_ms=total(name, "library_ms"),
-            ops_peak="tf32x3", timing=timing))
+            ops_peak="tf32x3", timing=timing,
+            mesh_launches=mesh_launches[name]))
     kernels.append(dict(
         name="mel_frontend", route="cuda",
         source="ttsx_torch/ops/csrc/mel_frontend.cu",

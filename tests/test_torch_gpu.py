@@ -10,7 +10,11 @@ the CPU; the diarizer's zoo slice encoder on the card against the CPU,
 its production controller end to end on the card, and batch mode with 2
 workers on the card; the speaker encoder's console scripts (a card
 checkpoint's EER on the card and the CPU) and its ``.pt2`` export
-reloaded on the card.
+reloaded on the card; a world-1 NCCL mesh (``-k parallel``): an engine
+step of the three blocks and the zoo's server under it equal to the same
+without one, K1 and K2 counted under the mesh, and the dryrun over two
+cards where there are two; the native wav loader on the card's host
+(``-k native``).
 
 Each test skips without a card, but four: the stage 1 and 2 entry points
 (trainers, zoo loaders, datasets and corpus features), the diarizer's
@@ -942,3 +946,97 @@ def test_pt2_export_reloads_on_card(cuda, tmp_path):
         got, want = program(mel), enc(mel)
     assert got.device.type == "cuda"
     assert float((got - want).abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------- parallel
+@pytest.fixture
+def nccl_world1(cuda):
+    """A world-1 NCCL process group on card 0 for the test."""
+    import torch.distributed as dist
+    from ttsx_torch.parallel.spawn import free_port
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_parallel_world1_engine_and_server_equal_meshless(nccl_world1):
+    """One engine step of the three blocks (the dryrun's tiny config)
+    under a world-1 NCCL mesh equals the step without it; the zoo's f32
+    server under the mesh launches K1 and K2 4 times each and gives the
+    mesh-less server's waveforms."""
+    from ttsx_torch.core.mesh import make_mesh
+    from ttsx_torch.data.synthetic import synthetic_batch
+    from ttsx_torch.parallel.dryrun import tiny_cfg
+    from ttsx_torch.serve import SynthesisRequest, SynthesisServer
+    from ttsx_torch.train.checkpoint import flatten
+    from ttsx_torch.train.engine import UnifiedTrainer
+    from ttsx_torch.zoo import serve_from_zoo
+    mesh = make_mesh(device="cuda")
+    assert mesh.shape == (1, 1) and mesh.device == torch.device("cuda", 0)
+    cfg = tiny_cfg()
+    batch = synthetic_batch(cfg, batch=2, frames=8, seed=1)
+    runs = []
+    for m in (mesh, None):
+        tr = UnifiedTrainer(cfg, iter([]), mesh=m)
+        metrics = tr.train_step(batch)
+        metrics.pop("step_time_s")
+        runs.append((metrics, flatten(tr.block_states)))
+    assert runs[0][0].keys() == runs[1][0].keys()
+    for k, v in runs[1][0].items():
+        assert runs[0][0][k] == pytest.approx(v, rel=1e-6, abs=1e-7), k
+    for k, v in runs[1][1].items():
+        if v.is_floating_point():
+            _close(runs[0][1][k], v, rtol=1e-6, atol=1e-7)
+
+    srv = serve_from_zoo(max_batch=2, frames=64, bf16=False)
+    meshed = SynthesisServer(srv.pipe, max_batch=2, frames=64, bf16=False,
+                             scale_stats=srv.scale_stats.cpu(), mesh=mesh)
+    ac = srv.cfg.acoustic
+    rng = np.random.default_rng(0)
+    reqs = [SynthesisRequest(
+        rng.standard_normal((n, ac.text_emb_dim)).astype(np.float32),
+        rng.standard_normal((n, ac.cond_dim)).astype(np.float32),
+        np.full(ac.emotion_dim, 1 / ac.emotion_dim, np.float32),
+        rng.standard_normal(ac.speaker_dim).astype(np.float32), i)
+        for i, n in enumerate((64, 40))]
+    ops.reset_launches()
+    outs = meshed.serve_batch(reqs)
+    assert ops.launch_counts() == {"upsample": 4, "resblock_stack": 4,
+                                   "mel_frontend": 0, "s4_scan": 0,
+                                   "resblock": 0}
+    for a, b in zip(outs, srv.serve_batch(reqs)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+
+
+def test_parallel_dryrun_on_two_cards(cuda):
+    """``dryrun_multichip(2)``: NCCL over two cards, equal to one rank."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from ttsx_torch.parallel.dryrun import dryrun_multichip
+    out = dryrun_multichip(2)
+    assert out["ok"] and out["world"] == 2
+
+
+# ------------------------------------------------------------------ native
+def test_native_loader_on_card_host(cuda, tmp_path):
+    """The native decoder and the pthreads prefetcher build and run on the
+    card's host: ``WavBatchLoader`` takes the native executor by default."""
+    from ttsx_torch.data import WavBatchLoader, read_wav, write_wav
+    from ttsx_torch.native import load
+    items = []
+    for i in range(3):
+        p = tmp_path / f"f{i}.wav"
+        write_wav(p, np.full(3000, (i + 1) / 10.0, np.float32), 16000)
+        items.append((str(p), i))
+    wav, sr = read_wav(items[0][0])
+    native, _ = load("_ttsx_wavio").read_wav(items[0][0])
+    assert sr == 16000 and np.array_equal(wav, native)
+    with WavBatchLoader(items, crop=1024, batch=2, workers=1) as loader:
+        assert loader.is_native
+        w, lab = loader.next(10000)
+    assert w.shape == (2, 1024) and lab.shape == (2,)

@@ -36,7 +36,11 @@ assert {"ttsx_torch.pipeline.diarizer.controller",
         "ttsx_torch.eval.export", "ttsx_torch.eval.acoustic_eval",
         "ttsx_torch.data.prefetch", "ttsx_torch.data.formantcorpus",
         "ttsx_torch.train.observer",
-        "ttsx_torch.utils.check_file_sizes"} <= set(names)
+        "ttsx_torch.utils.check_file_sizes", "ttsx_torch.core.mesh",
+        "ttsx_torch.parallel", "ttsx_torch.parallel.data_parallel",
+        "ttsx_torch.parallel.dryrun", "ttsx_torch.parallel.spawn",
+        "ttsx_torch.native",
+        "ttsx_torch.native.build"} <= set(names)
 for n in names:
     importlib.import_module(n)
 import chip_smoke

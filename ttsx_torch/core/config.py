@@ -5,9 +5,9 @@ the trainers read: ``AudioConfig``, ``S4Config``, ``RefEncConfig`` (the
 speaker encoder), ``ProsodyConfig`` (the prosody predictor),
 ``AcousticConfig``, ``RefinerConfig``, ``VocoderConfig``, ``NovelConfig``,
 ``TrainConfig``, ``DiarizerConfig`` (the speaker diarizer),
-``PipelineConfig`` (the observer pipeline) and a ``TTSXConfig`` root
-holding the synthesis chain's, its trainers' and the pipeline's (the
-reference's ``mesh`` is not carried yet). Field
+``PipelineConfig`` (the observer pipeline), ``MeshConfig`` (the dp x tp
+grid of ``ttsx_torch.core.mesh``) and a ``TTSXConfig`` root holding them
+all. Field
 names and defaults are the reference's, so a dict written by
 ``ttsx.core.config.to_dict`` loads here through ``from_dict`` (keys this
 tree does not carry are ignored) and back; ``save_config`` and
@@ -200,6 +200,8 @@ class VocoderConfig:
     # True: each stage's FiLM resblocks run as one CUDA kernel K2
     # (ops/resblock_stack.py)
     use_pallas_resblock_stack: bool = False
+    # True: under an active mesh with tp > 1, tp rank t runs bands
+    # [t*nb/tp, (t+1)*nb/tp) through the shared tower (models/vocoder.py)
     band_tp: bool = False
     remat: bool = False
 
@@ -280,6 +282,15 @@ class PipelineConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The (dp, tp) grid of ranks (``ttsx_torch.core.mesh.make_mesh``):
+    dp -1 takes every rank that tp does not."""
+    dp: int = -1
+    tp: int = 1
+    axis_names: Tuple[str, ...] = ("dp", "tp")
+
+
+@dataclass(frozen=True)
 class TTSXConfig:
     audio: AudioConfig = field(default_factory=AudioConfig)
     ref_enc: RefEncConfig = field(default_factory=RefEncConfig)
@@ -288,6 +299,7 @@ class TTSXConfig:
     refiner: RefinerConfig = field(default_factory=RefinerConfig)
     vocoder: VocoderConfig = field(default_factory=VocoderConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
 
 

@@ -1,4 +1,5 @@
-"""Wav-tree dataset (``ttsx/data/dataset.py``), numpy and scipy only.
+"""Wav-tree dataset (``ttsx/data/dataset.py``): numpy, scipy and the
+native wav decoder.
 
 Discovers ``<root>/<speaker>/<domain>/<style>/*.wav`` with a parallel
 transcript tree and returns per-item dicts: wav, text ids, a sentence
@@ -22,8 +23,17 @@ from ttsx_torch.core.config import AudioConfig
 def read_wav(path: str | Path, target_sr: int | None = None
              ) -> Tuple[np.ndarray, int]:
     """A wav as float32 mono in [-1, 1], linearly resampled to
-    ``target_sr`` (scipy's reader; the reference's native decoder gives
-    the same samples)."""
+    ``target_sr``: the native single-pass decoder
+    (``ttsx_torch.native``'s ``_ttsx_wavio``) where it builds, as the
+    reference prefers its own; an encoding it does not read (or a build
+    that failed) goes to scipy's reader, which gives the same samples."""
+    from ttsx_torch.native import try_load
+    wavio = try_load("_ttsx_wavio")
+    if wavio is not None:
+        try:
+            return wavio.read_wav(str(path), int(target_sr or 0))
+        except ValueError:
+            pass    # an encoding the decoder does not read: scipy's turn
     from scipy.io import wavfile
     sr, data = wavfile.read(path)
     if data.dtype == np.int16:

@@ -3,13 +3,15 @@ threads decode and random-crop wavs into whole [batch, crop] float32
 batches in a bounded queue, so host IO overlaps the steps on the card.
 The mel frontend then runs as one batched call per batch.
 
-The reference's default route is a native pthreads executor
-(``ttsx/native/prefetch.c``), with this Python-thread executor as its
-fallback. The port has the Python-thread executor only: ``native=True``
-raises, as the reference does where its extension is missing, and
-``is_native`` is False. ``stats()`` counts what the executor did
-(batches produced and consumed, failed decodes), as the native
-executor's does; the reference's fallback returns zeros.
+Two executors, as in the reference: the native pthreads pool
+(``ttsx_torch.native``'s ``_ttsx_prefetch``, its own copy of
+``ttsx/native/prefetch.c``), which ``native=None`` takes where it builds
+and ``native=True`` requires (raising with the compiler's error where it
+does not build), and Python threads, which ``native=False`` asks for and
+``native=None`` takes where the pool does not build. ``is_native`` says
+which runs. ``stats()`` counts what either did (batches produced and
+consumed, failed decodes); the reference's Python executor returns
+zeros there.
 """
 from __future__ import annotations
 
@@ -41,13 +43,23 @@ class WavBatchLoader:
                  batch: int, sample_rate: int = 0, workers: int = 2,
                  depth: int = 4, seed: int = 0,
                  native: Optional[bool] = None):
-        if native:
-            raise RuntimeError("native prefetcher unavailable")
         self.crop = int(crop)
         self.batch = int(batch)
         paths = [str(p) for p, _ in items]
         labels = [int(l) for _, l in items]
+        self._native = None
+        self._threads: list = []
         self._stop = threading.Event()
+        if native is not False:
+            from ttsx_torch.native import load, try_load
+            ext = (load("_ttsx_prefetch") if native
+                   else try_load("_ttsx_prefetch"))
+            if ext is not None:
+                self._native = ext.Prefetcher(
+                    paths, labels, self.crop, self.batch,
+                    target_sr=sample_rate, workers=workers, depth=depth,
+                    seed=seed)
+                return
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._lock = threading.Lock()
         self._counts = [0, 0, 0]    # produced, consumed, decode errors
@@ -92,12 +104,14 @@ class WavBatchLoader:
 
     @property
     def is_native(self) -> bool:
-        return False
+        return self._native is not None
 
     def next(self, timeout_ms: int = 30000
              ) -> Tuple[np.ndarray, np.ndarray]:
         """The next batch; ``TimeoutError`` if none comes within
         ``timeout_ms``."""
+        if self._native is not None:
+            return self._native.next(timeout_ms=timeout_ms)
         try:
             out = self._q.get(timeout=timeout_ms / 1000.0)
         except queue.Empty:
@@ -112,10 +126,14 @@ class WavBatchLoader:
 
     def stats(self) -> Tuple[int, int, int]:
         """(batches produced, batches consumed, failed decodes)."""
+        if self._native is not None:
+            return tuple(self._native.stats())
         with self._lock:
             return tuple(self._counts)
 
     def close(self):
+        if self._native is not None:
+            self._native.close()
         self._stop.set()
         for t in self._threads:
             t.join(timeout=2.0)

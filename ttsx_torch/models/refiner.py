@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ttsx_torch.core.config import RefinerConfig
+from ttsx_torch.core.mesh import global_rows
 from ttsx_torch.nn.conv import Conv1d
 from ttsx_torch.nn.draws import Draws
 from ttsx_torch.nn.embed import sinusoidal_table
@@ -155,7 +156,10 @@ def sde_sample(refiner: ScoreSDERefiner, mel0: torch.Tensor,
     so the last step adds no noise. eps_k is ``noise[k]`` when the caller
     gives the ``steps`` tensors (the tests give the reference's draws),
     else a standard normal draw from ``generator`` on mel0's device; JAX's
-    key stream cannot be reproduced."""
+    key stream cannot be reproduced. Under a mesh of dp > 1 the draw is
+    the global batch's and this rank keeps its rows
+    (``core.mesh.global_rows``), so a dp run samples what one process
+    would; ``noise`` is then this rank's rows."""
     cfg = refiner.cfg
     steps = steps or cfg.sde_steps
     if noise is not None and len(noise) != steps:
@@ -166,8 +170,9 @@ def sde_sample(refiner: ScoreSDERefiner, mel0: torch.Tensor,
     for k in range(steps):
         t = mel0.new_full((B, 1), 1.0 - k * dt)
         out = refiner(x, prosody, style_id, text_emb, t=t)
-        eps = (noise[k].to(x) if noise is not None else torch.randn(
-            x.shape, generator=generator, device=x.device, dtype=x.dtype))
+        eps = (noise[k].to(x) if noise is not None else global_rows(
+            lambda s: torch.randn(s, generator=generator, device=x.device,
+                                  dtype=x.dtype), x.shape))
         x = x + dt * out.score + cfg.sde_sigma * math.sqrt(dt) * eps * (
             1.0 - (k + 1) * dt)
     return x

@@ -21,6 +21,17 @@ gradient, so a generator under training runs with both flags off (the
 vocoder train block sees to it). With ``cfg.remat`` and a gradient,
 each FiLM residual block is recomputed in the backward pass
 (``torch.utils.checkpoint``, as ``nn.remat`` in the reference).
+
+Band tensor parallelism (``cfg.band_tp``): under an active mesh of
+tp > 1 (``ttsx_torch.core.mesh``) tp rank t runs bands
+[t*nb/tp, (t+1)*nb/tp) through the shared tower, so the kernels run on
+its rows only, and the towers' outputs are all-gathered over tp, in band
+order, before ``band_merge``; ``num_bands % tp`` must be 0. The gather's
+backward hands rank t tp x the gradient of its bands: everything before
+it (the tower, the conditioning) then holds tp x its share of the
+gradient, ``band_merge`` the whole gradient, and the mean over the ranks
+that ``TrainState.apply_gradients`` takes is the unsplit gradient for
+both. Without a mesh, or at tp = 1, the flag changes nothing.
 """
 from __future__ import annotations
 
@@ -32,11 +43,27 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ttsx_torch.core.config import VocoderConfig
+from ttsx_torch.core.mesh import active_mesh
 from ttsx_torch.nn.attention import SelfAttention1d
 from ttsx_torch.nn.conv import Conv1d, ConvTranspose1d
 from ttsx_torch.nn.layers import Dense, LayerNorm, leaky_relu, silu
 from ttsx_torch.ops import convt_upsample, film_resblock, film_resblock_stack
 from ttsx_torch.ops.resblock_stack import nearest_rows
+
+
+class _GatherBands(torch.autograd.Function):
+    """All-gather over tp in the forward; tp x this rank's slice of the
+    gradient in the backward (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, h, mesh):
+        ctx.mesh = mesh
+        return mesh.all_gather(h, "tp")
+
+    @staticmethod
+    def backward(ctx, grad):
+        m = ctx.mesh
+        return grad.chunk(m.tp)[m.tp_rank] * m.tp, None
 
 
 class FiLMResidualBlock(nn.Module):
@@ -162,9 +189,18 @@ class Generator(nn.Module):
                 scale = mel.new_zeros(B, 2 * C)
             cond = cond + self.scale_proj(scale)[:, None]
         cond = self.cond_norm(cond)
-        bands = (mel.reshape(B, T, nb, C // nb).permute(2, 0, 1, 3)
-                 .reshape(nb * B, T, C // nb))
-        h = self.band_tower(bands, cond)                  # [nb*B, T*up, ch]
+        bands = mel.reshape(B, T, nb, C // nb).permute(2, 0, 1, 3)
+        mesh = active_mesh() if cfg.band_tp else None
+        split = mesh is not None and mesh.tp > 1
+        if split:
+            if nb % mesh.tp:
+                raise ValueError(f"band_tp: {nb} bands do not split over "
+                                 f"tp={mesh.tp}")
+            per = nb // mesh.tp
+            bands = bands[mesh.tp_rank * per:(mesh.tp_rank + 1) * per]
+        h = self.band_tower(bands.reshape(-1, T, C // nb), cond)
+        if split:
+            h = _GatherBands.apply(h, mesh)               # [nb*B, T*up, ch]
         ch = h.shape[-1]
         h = (h.reshape(nb, B, T * self.hop, ch).permute(1, 2, 0, 3)
              .reshape(B, T * self.hop, nb * ch))

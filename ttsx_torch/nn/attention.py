@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ttsx_torch.nn.draws import Draws
+from ttsx_torch.nn.draws import Draws, replicated
 from ttsx_torch.nn.layers import Dense
 
 
@@ -78,7 +78,9 @@ class MHSA(nn.Module):
         attn = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
         if draws is not None and self.dropout > 0.0:
             keep_prob = 1.0 - self.dropout
-            keep = draws.bernoulli(keep_prob, (1, 1) + tuple(attn.shape[-2:]))
+            # one mask for the whole batch, so the same on every rank
+            keep = replicated(draws).bernoulli(
+                keep_prob, (1, 1) + tuple(attn.shape[-2:]))
             attn = attn * (keep.float() / keep_prob)
         o = (attn @ v).transpose(1, 2).reshape(B, Tq, D)
         return self.out(o)

@@ -11,12 +11,21 @@ back in order, checking kind and shape: that is how a test or a second
 device runs a step on the same draws (JAX's PRNG streams cannot be
 reproduced). ``mark`` / ``rewind`` let a block reuse one window's draws
 for every micro-batch, as the reference does with one key per window.
+
+Under a mesh of dp > 1 (``ttsx_torch.core.mesh``) a block draws through
+``mesh_draws(draws)``: every draw is made at the global batch's shape
+and cut to this rank's rows, as the reference draws one global tensor
+and shards it, so a dp run is one process's run. Every draw of a
+training forward is batch-major but attention dropout's mask, which is
+shared by the whole batch and drawn through ``replicated(draws)``.
 """
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
 import torch
+
+from ttsx_torch.core.mesh import active_mesh, global_rows
 
 
 class Draws:
@@ -128,6 +137,53 @@ class ReplayDraws:
 
     def exhausted(self) -> bool:
         return self.pos == len(self.records)
+
+
+class ShardedDraws:
+    """``inner``'s draws at the global batch's shape, this rank's rows."""
+
+    def __init__(self, inner, mesh):
+        self.inner, self.mesh = inner, mesh
+
+    @property
+    def gen(self):
+        return self.inner.gen
+
+    def _rows(self, draw, shape):
+        return global_rows(draw, shape, self.mesh)
+
+    def uniform(self, shape, low=0.0, high=1.0):
+        return self._rows(lambda s: self.inner.uniform(s, low, high), shape)
+
+    def normal(self, shape):
+        return self._rows(self.inner.normal, shape)
+
+    def randint(self, shape, low, high):
+        return self._rows(lambda s: self.inner.randint(s, low, high), shape)
+
+    def bernoulli(self, p, shape):
+        return self._rows(lambda s: self.inner.bernoulli(p, s), shape)
+
+    def mark(self):
+        return self.inner.mark()
+
+    def rewind(self, mark) -> None:
+        self.inner.rewind(mark)
+
+
+def mesh_draws(draws):
+    """``draws`` cut to this rank's rows under an active mesh of dp > 1,
+    else ``draws`` itself."""
+    mesh = active_mesh()
+    if draws is None or mesh is None or mesh.dp == 1:
+        return draws
+    return ShardedDraws(draws, mesh)
+
+
+def replicated(draws):
+    """The draws behind a ``ShardedDraws``, for a draw that is not
+    batch-major (the same tensor on every rank)."""
+    return draws.inner if isinstance(draws, ShardedDraws) else draws
 
 
 def dropout(x: torch.Tensor, rate: float, draws, broadcast_dims=()

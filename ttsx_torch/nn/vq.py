@@ -11,6 +11,11 @@ by a prime stride. The quantized value and the 0.25-weighted commitment
 loss read the codebook from before the update. As in the reference, the
 codebook is formed in the statistics' dtype (bfloat16 once a server has
 cast them) and the distances run in float32; the output takes x's dtype.
+
+Under a mesh of dp > 1 (``ttsx_torch.core.mesh``) the statistics are the
+global batch's, as under the reference's sharding: the counts and sums
+add over dp, and restart row r of the global batch comes from the rank
+that holds it, all in one all-reduce.
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ from typing import Sequence, Tuple
 
 import torch
 from torch import nn
+
+from ttsx_torch.core.mesh import active_mesh
 
 
 class VectorQuantizer(nn.Module):
@@ -51,14 +58,26 @@ class VectorQuantizer(nn.Module):
     def _ema_update(self, flat: torch.Tensor, idx: torch.Tensor) -> None:
         k = self.cluster_size.shape[0]
         onehot = torch.nn.functional.one_hot(idx, k).float()
+        counts, sums = onehot.sum(0), onehot.T @ flat
+        codes = torch.arange(k, device=flat.device)
+        mesh, n = active_mesh(), flat.shape[0]
+        if mesh is None or mesh.dp == 1:
+            seed = flat[(codes * 7919) % n]
+        else:
+            rows = (codes * 7919) % (n * mesh.dp)     # global row indices
+            own = (rows // n == mesh.dp_rank)[:, None]
+            seed = torch.where(own, flat[rows % n], torch.zeros_like(sums))
+            stats = mesh.all_reduce(
+                torch.cat([counts[:, None], sums, seed], dim=1), "dp")
+            counts = stats[:, 0]
+            sums, seed = stats[:, 1:].chunk(2, dim=1)
         d = self.decay
-        self.cluster_size.mul_(d).add_((1 - d) * onehot.sum(0))
-        self.embed_sum.mul_(d).add_((1 - d) * (onehot.T @ flat))
-        rows = (torch.arange(k, device=flat.device) * 7919) % flat.shape[0]
+        self.cluster_size.mul_(d).add_((1 - d) * counts)
+        self.embed_sum.mul_(d).add_((1 - d) * sums)
         dead = self.cluster_size < self.dead_thresh
         self.cluster_size.copy_(torch.where(
             dead, torch.ones_like(self.cluster_size), self.cluster_size))
-        self.embed_sum.copy_(torch.where(dead[:, None], flat[rows],
+        self.embed_sum.copy_(torch.where(dead[:, None], seed,
                                          self.embed_sum))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

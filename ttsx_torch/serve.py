@@ -14,8 +14,18 @@ the reference this is not bfloat16 compute: every layer promotes its
 input and parameters as JAX does, so the graph returns to float32 at its
 first float32 operand (the rotary tables, the refiner's mel, a norm's
 statistics) and the stage outputs ``mel0``, ``mel_ref`` and the waveform
-are float32. The reference's ``chain`` and ``mesh`` options have no
-counterpart here.
+are float32.
+
+``mesh`` (a ``ttsx_torch.core.mesh.Mesh`` on the server's device) serves
+SPMD, one process per rank, as the reference shards its bucket over dp:
+every rank holds the pipeline (broadcast from rank 0), pads the same
+bucket, runs its rows of the dp axis inside ``with mesh:`` (where a
+``band_tp`` generator also splits its bands over tp) and all-gathers the
+waveforms, so ``serve_batch`` returns every request's waveform on every
+rank; ``max_batch`` must split over dp. ``chain`` is accepted with the
+reference's default: there it compiles the pipeline as three programs
+instead of one, and eager PyTorch has no program to split, so both
+values run the same calls and give the same waveforms.
 
 ``make_voice_transform`` re-voices a mel: the refiner on zero text, the
 target's style id, the generator with uniform emotion and the GST style
@@ -31,6 +41,7 @@ import numpy as np
 import torch
 
 from ttsx_torch.core.device import resolve_device, set_f32_numerics
+from ttsx_torch.core.mesh import dp_rows
 from ttsx_torch.models.pipeline import SynthesisOutput, TTSPipeline
 from ttsx_torch.weights import cast_float32
 
@@ -48,12 +59,23 @@ class SynthesisServer:
     def __init__(self, pipe: TTSPipeline, device="cuda", max_batch: int = 8,
                  frames: int = 512, bf16: bool = True,
                  loudness_peak: Optional[float] = None,
-                 scale_stats: Optional[np.ndarray] = None):
+                 scale_stats: Optional[np.ndarray] = None, mesh=None,
+                 chain: bool = True):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_f32_numerics()
         self.cfg = pipe.cfg
+        self.mesh, self.chain = mesh, chain
         pipe = pipe.to(self.device)
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the mesh is on {mesh.device}, the server "
+                                 f"on {self.device}")
+            if max_batch % mesh.dp:
+                raise ValueError(f"max_batch {max_batch} does not split "
+                                 f"over dp={mesh.dp}")
+            from ttsx_torch.parallel import replicate
+            replicate(pipe, mesh)
         # the caller's pipeline keeps its dtypes; the server casts a copy
         self.pipe = (cast_float32(copy.deepcopy(pipe), torch.bfloat16)
                      if bf16 else pipe)
@@ -109,8 +131,14 @@ class SynthesisServer:
 
     def run(self, text, pros, emo, spk, sid) -> torch.Tensor:
         """The padded batch through ``stages`` -> float32 wav
-        [B, T*hop, 1]."""
-        return self.stages(text, pros, emo, spk, sid).wav.float()
+        [B, T*hop, 1]; under a mesh, this rank's rows through ``stages``
+        and the whole batch's wav gathered over dp."""
+        arrays = (text, pros, emo, spk, sid)
+        if self.mesh is None:
+            return self.stages(*arrays).wav.float()
+        with self.mesh:
+            wav = self.stages(*(dp_rows(a, self.mesh) for a in arrays))
+            return self.mesh.all_gather(wav.wav.float(), "dp")
 
     def serve_batch(self, reqs: Sequence[SynthesisRequest]) -> List[np.ndarray]:
         if len(reqs) > self.max_batch:

@@ -13,6 +13,12 @@ the generator's (``states["gen"].draws``).
 
 Batches are dicts of numpy arrays or tensors (``as_tensors`` moves them).
 
+Under an active mesh (``ttsx_torch.core.mesh``) a block steps on this
+rank's rows: its draws go through ``mesh_draws`` (the global batch's
+draws, this rank's rows) and its updates average the gradients over the
+ranks (``TrainState.apply_gradients``), so a dp run's states are one
+process's.
+
 A block's ``state_dict`` is its checkpoint entry, the reference's block
 state: the acoustic and refiner blocks' one ``TrainState``; the vocoder
 block's five (``gen``, ``gst``, ``mpd``, ``msd``, ``mbd``) and the STFT
@@ -38,7 +44,7 @@ from ttsx_torch.models.discriminators import (MultiBandDiscriminator,
 from ttsx_torch.models.refiner import ScoreSDERefiner
 from ttsx_torch.models.vocoder import Generator
 from ttsx_torch.nn.gst import GlobalStyleTokens
-from ttsx_torch.nn.draws import Draws
+from ttsx_torch.nn.draws import Draws, mesh_draws
 from ttsx_torch.nn.init import fresh_init_
 from ttsx_torch.train import losses as L
 from ttsx_torch.train.optim import make_optimizer
@@ -100,7 +106,7 @@ class AcousticBlock(_Block):
         c = self.cfg.acoustic
         out = self.model(b["text_emb"], b["prosody"], b["emotion_probs"],
                          speaker=b.get("speaker"), target_mel=b["mel"],
-                         draws=self.state.draws)
+                         draws=mesh_draws(self.state.draws))
         loss, parts = L.composite_acoustic_loss(
             out, b["mel"], c.w_mel, c.w_mse, c.w_disc, c.w_diff, c.w_emo,
             mask=b.get("frame_mask"))
@@ -157,7 +163,7 @@ class RefinerBlock(_Block):
     def train_step(self, batch: Dict, mel_pred: torch.Tensor,
                    noise_scale: float, l1_weight: float) -> Dict:
         b = as_tensors(batch, self.device)
-        draws = self.state.draws
+        draws = mesh_draws(self.state.draws)
         B = mel_pred.shape[0]
         t = draws.uniform((B, 1))
         noise = draws.normal(mel_pred.shape)
@@ -274,7 +280,7 @@ class VocoderBlock:
     def _synthesize(self, b: Dict) -> torch.Tensor:
         mel = b["mel_ref"] if "mel_ref" in b else b["mel"]
         style = self.gst(mel)
-        draws = self.states["gen"].draws
+        draws = mesh_draws(self.states["gen"].draws)
         keep = 1.0 - self.vc.dropout_prob
         style = style * draws.bernoulli(keep, (style.shape[0], 1)).to(
             style.dtype)

@@ -58,10 +58,24 @@ validation batches. It sees the batch as the engine holds it, a dict of
 tensors on the engine's device (``blocks.as_tensors``), and the step
 number ``state.global_step``.
 
-Not ported yet: the data-parallel mesh.
+``mesh=`` (a ``ttsx_torch.core.mesh.Mesh`` on the engine's device) runs
+the engine SPMD, one process per rank, as the reference's ``mesh=``
+shards its batches: every rank builds the same blocks (their states
+broadcast from rank 0 once), takes the same global batches from the same
+stream and steps on its rows of the dp axis, inside ``with mesh:``, so
+the blocks' draws, masked means, VQ statistics and gradient averages are
+the global batch's. The metrics ``train_step`` and ``validate`` return
+are their means over the ranks, the same floats on every rank, and so is
+all control flow that reads them: the dynamic-GAN ratio, the
+validation-driven noise scale and L1 weight, and the ``best``
+checkpoint. Rank 0 alone writes checkpoints (the others wait for it);
+every rank restores them. A GAN step that runs out of memory raises
+under a mesh of more than one rank: one rank skipping it would leave the
+others waiting in a collective.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, Iterable, List, Optional
 
@@ -70,6 +84,7 @@ import torch
 
 from ttsx_torch.core.config import TTSXConfig
 from ttsx_torch.core.device import resolve_device
+from ttsx_torch.core.mesh import shard_batch
 from ttsx_torch.train import checkpoint as ckpt
 from ttsx_torch.train.blocks import BLOCKS, as_tensors
 from ttsx_torch.train.callbacks import Callback
@@ -104,11 +119,15 @@ class UnifiedTrainer:
                  val_iter=None, callbacks: Optional[List[Callback]] = None,
                  blocks: Iterable[str] = ("acoustic", "refiner", "vocoder"),
                  checkpoint_dir: Optional[str] = None, device="cuda",
-                 observer=None):
+                 observer=None, mesh=None):
         self.cfg = cfg
         self.observer = observer
         self.checkpoint_dir = checkpoint_dir
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh is on {mesh.device}, the engine on "
+                             f"{self.device}")
         self.train_iter = iter(train_iter)
         # a one-shot generator is kept as a list, so that every validation
         # pass sees every batch
@@ -124,6 +143,22 @@ class UnifiedTrainer:
                 raise KeyError(f"unknown train block '{name}'")
             self.blocks[name] = BLOCKS[name](cfg, self.device,
                                              cfg.train.seed + i)
+        if mesh is not None:
+            from ttsx_torch.parallel import replicate
+            for block in self.blocks.values():
+                replicate(block, mesh)
+
+    def _meshed(self):
+        return self.mesh if self.mesh is not None else contextlib.nullcontext()
+
+    def _place(self, batch: Dict) -> Dict:
+        """The batch's tensors on the engine's device; under a mesh, this
+        rank's rows of them."""
+        b = as_tensors(batch, self.device)
+        return b if self.mesh is None else shard_batch(b, self.mesh)
+
+    def _global(self, metrics: Dict[str, float]) -> Dict[str, float]:
+        return metrics if self.mesh is None else self.mesh.mean(metrics)
 
     def _pre_forward(self, stage: str, batch: Dict,
                      training: bool = True) -> Dict:
@@ -134,10 +169,14 @@ class UnifiedTrainer:
                                          training=training)
 
     def train_step(self, batch: Dict) -> Dict:
+        with self._meshed():
+            return self._train_step(batch)
+
+    def _train_step(self, batch: Dict) -> Dict:
         t0 = time.perf_counter()
         cfg = self.cfg.train
         metrics: Dict[str, float] = {}
-        b = as_tensors(batch, self.device)
+        b = self._place(batch)
         mel_pred = b["mel"]
         taken = 1       # batches this step takes from the stream
 
@@ -147,8 +186,8 @@ class UnifiedTrainer:
                 micro = [self._pre_forward("acoustic", b)]
                 for _ in range(cfg.grad_accum_steps - 1):
                     try:
-                        micro.append(self._pre_forward("acoustic", as_tensors(
-                            next(self.train_iter), self.device)))
+                        micro.append(self._pre_forward("acoustic", self._place(
+                            next(self.train_iter))))
                     except StopIteration:
                         break
                 taken = len(micro)
@@ -157,15 +196,15 @@ class UnifiedTrainer:
             else:
                 out = block.train_step(self._pre_forward("acoustic", b))
                 mel_pred = out["mel_pred"]
-            metrics.update({f"acoustic/{k}": float(v)
-                            for k, v in out["metrics"].items()})
+            metrics.update(self._global({f"acoustic/{k}": float(v)
+                                         for k, v in out["metrics"].items()}))
 
         if ("refiner" in self.blocks
                 and self.state.global_step % cfg.refiner_update_freq == 0):
             out = self.blocks["refiner"].train_step(
                 self._pre_forward("refiner", b), mel_pred, self.state.noise_scale, self.state.l1_weight)
-            metrics.update({f"refiner/{k}": float(v)
-                            for k, v in out["metrics"].items()})
+            metrics.update(self._global({f"refiner/{k}": float(v)
+                                         for k, v in out["metrics"].items()}))
 
         if ("vocoder" in self.blocks
                 and self.state.global_step >= cfg.vocoder_freeze_until
@@ -189,10 +228,14 @@ class UnifiedTrainer:
                 dm = voc.disc_step(b)
             gm = voc.gen_step(b)
         except torch.OutOfMemoryError:
+            if self.mesh is not None and self.mesh.size > 1:
+                raise
             voc.zero_grad()
             self.state.oom_count += 1
             return {"vocoder/oom": self.state.oom_count}
-        d_l, g_l = float(dm["d_loss"]), float(gm["g_loss"])
+        losses = self._global({"d": float(dm["d_loss"]),
+                               "g": float(gm["g_loss"])})
+        d_l, g_l = losses["d"], losses["g"]
         a = 0.9
         st = self.state
         st.d_loss_ema = a * st.d_loss_ema + (1 - a) * d_l
@@ -213,13 +256,17 @@ class UnifiedTrainer:
         return tr.gan_d_steps
 
     def validate(self) -> Dict:
+        with self._meshed():
+            return self._validate()
+
+    def _validate(self) -> Dict:
         if self.val_iter is None or not ({"acoustic", "refiner"}
                                          & set(self.blocks)):
             return {}
         vals = []
         batches = self.val_iter() if callable(self.val_iter) else self.val_iter
         for batch in batches:
-            b = as_tensors(batch, self.device)
+            b = self._place(batch)
             out = None
             mel_pred = b["mel"]  # refiner alone: refine the ground truth
             if "acoustic" in self.blocks:
@@ -229,7 +276,7 @@ class UnifiedTrainer:
             if "refiner" in self.blocks:
                 out = self.blocks["refiner"].val_step(
                     self._pre_forward("refiner", b, training=False), mel_pred)
-            vals.append(float(out["val_l1"]))
+            vals.append(self._global({"v": float(out["val_l1"])})["v"])
         val_l1 = float(np.mean(vals)) if vals else float("inf")
         metrics = {"val_l1": val_l1}
         if self.cfg.train.novel.sde_noise_annealing:
@@ -251,8 +298,11 @@ class UnifiedTrainer:
         if self.checkpoint_dir is None:
             return
         extra = {k: getattr(self.state, k) for k in EXTRA}
-        ckpt.save_checkpoint(self.checkpoint_dir, tag, self.block_states,
-                             self.state.global_step, extra)
+        if self.mesh is None or self.mesh.rank == 0:
+            ckpt.save_checkpoint(self.checkpoint_dir, tag, self.block_states,
+                                 self.state.global_step, extra)
+        if self.mesh is not None:
+            self.mesh.barrier()
         for cb in self.callbacks:
             cb.on_checkpoint(self, self.state.global_step)
 

@@ -2,13 +2,19 @@
 ArcFace and GE2E, the prosody predictor's weighted smooth L1, the
 acoustic block's ``composite_acoustic_loss``, the refiner's
 ``refiner_loss`` and the vocoder GAN's hinge, feature-matching, warmup,
-energy and R1 terms."""
+energy and R1 terms.
+
+A masked mean divides by ``core.mesh.masked_denominator`` of its mask
+sum: under a mesh of dp > 1 the global batch's, so that the ranks' mean
+loss and gradient are the global batch's with masks of any lengths."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ttsx_torch.core.mesh import masked_denominator
 
 
 def _unit(x: torch.Tensor) -> torch.Tensor:
@@ -86,7 +92,7 @@ def prosody_loss(pred: Dict[str, torch.Tensor],
         l = _smooth_l1(pred[key], target[key])
         if mask is not None:
             m = mask.to(l.dtype)
-            l = (l * m).sum() / m.sum().clamp_min(1.0)
+            l = (l * m).sum() / masked_denominator(m.sum())
         else:
             l = l.mean()
         total = total + weights.get(key, 1.0) * l
@@ -106,7 +112,7 @@ def composite_acoustic_loss(out, target_mel: torch.Tensor, w_mel=1.0,
     noise-prediction energy + the optional emotion MSE."""
     if mask is not None:
         m = mask[..., None].to(target_mel.dtype)
-        denom = torch.clamp_min(m.sum(), 1.0) * target_mel.shape[-1]
+        denom = masked_denominator(m.sum()) * target_mel.shape[-1]
         mel_l1 = ((out.mel - target_mel).abs() * m).sum() / denom
         mel_mse = (((out.mel - target_mel) ** 2) * m).sum() / denom
     else:

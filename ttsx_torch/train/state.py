@@ -10,6 +10,18 @@ parameters, as the reference's does. Only the vocoder's generator keeps
 one (``VocoderConfig.ema_decay``); the acoustic and refiner blocks run
 without, so they validate on the module itself.
 
+Under an active mesh (``ttsx_torch.core.mesh``) ``apply_gradients``
+first averages the gradients over every rank, in one all-reduce, so the
+optimizer's clip sees the global norm as in the reference's sharded
+program. Every rank's loss is a mean over its rows with global
+denominators, so the average is the global batch's gradient; under the
+generator's ``band_tp`` the tp gather's backward hands each rank tp x
+its bands' gradient, so the average is right there too. The reduction
+reads ``.grad`` after the backward, so R1's double backward needs no
+``DistributedDataParallel`` (whose reducer does not serve
+``create_graph``), and the refiner's VQ buffers are never broadcast
+(``broadcast_buffers`` would overwrite the other ranks' statistics).
+
 ``state_dict`` / ``load_state_dict`` hold everything the reference's
 ``TrainState`` pytree holds, as tensors: the update ``step``, the
 module's parameters and buffers (``params``), the optimizer's ``count``
@@ -26,6 +38,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ttsx_torch.core.mesh import active_mesh
 from ttsx_torch.nn.draws import Draws
 from ttsx_torch.train.optim import ClippedAdamW
 
@@ -50,6 +63,7 @@ class TrainState:
     @torch.no_grad()
     def apply_gradients(self) -> float:
         """One optimizer update; returns the rate it used."""
+        average_gradients(self.module)
         lr = self.tx.step()
         self.module.zero_grad(set_to_none=True)
         self.step += 1
@@ -107,3 +121,20 @@ class TrainState:
         if use_ema and self.ema is not None:
             state.update(self.ema)
         return state
+
+
+@torch.no_grad()
+def average_gradients(module: nn.Module) -> None:
+    """Under an active mesh of more than one rank, every parameter's
+    ``.grad`` becomes its mean over the ranks (one all-reduce of the
+    gradients flattened together; every rank holds the same set)."""
+    mesh = active_mesh()
+    if mesh is None or mesh.size == 1:
+        return
+    grads = [p.grad for p in module.parameters() if p.grad is not None]
+    if not grads:
+        return
+    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+    flat /= mesh.size
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))
