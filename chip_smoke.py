@@ -226,6 +226,28 @@ Run from the root of a checkout. Phases, one JSON line each:
    With two cards or more, ``dryrun_multichip(2)`` (dp = 2) and
    ``dryrun_multichip(2, tp=2)`` (band_tp) as NCCL ranks in processes of
    their own, each equal to one rank.
+5j. parity: the parity harnesses (``ttsx_torch/eval/parity*.py``) at full
+   width and cut steps (``PARITY_STEPS``; the prosody predictor at its
+   default steps), each record printed on a line
+   of its own: the standard set through ``parity_aux.EXPERIMENTS``
+   (refenc, prosody, acoustic, refiner, vocoder, diarizer), under cuDNN's
+   and torch's deterministic algorithms (``deterministic_ops``), each
+   record holding the keys of the reference's record of the same experiment
+   (``eval_results/parity.json``, ``parity_diar.json``) with finite
+   values, the trained encoder's EER below random weights', the trained
+   acoustic's MCD below random weights', the trained predictor's voiced
+   f0 Pearson r above random weights', the GAN stable, its
+   discriminators ``DISC_PARAMS``; ``e2e_parity`` at cut steps
+   (``PARITY_E2E_STEPS``) exporting a zoo (the checked-in zoo's vocoder
+   overrides) into the phase's directory, its text -> wav readouts (one
+   pass and SDE) finite; none of these launches a kernel. That zoo
+   through ``serve_from_zoo`` (both kernel flags on, f32) for one 10 s
+   request: K1 and K2 4 launches each, the waveform within ``WAV_TOL``
+   of the same zoo served on the plain path. ``record_baseline.record``
+   at ``TTSXConfig()`` (per-stage ms and peak MB, printed on a line of
+   its own; the peak statistics reset just before), and
+   ``rule_calibration`` at ``tests/test_pipeline.py``'s sizes: group
+   accuracy above 0.8, ECE below 0.15, 31 rules reachable.
 6. timing: CUDA-event times of each kernel beside its plain version (K1
    and K2 at the stage shapes above; K3 by graph replay, eager beside, at
    each batch shape the trainer collated and at the 10 s clip, with the
@@ -271,7 +293,8 @@ summed over the 12 blocks of the per-block generator route at batch 1
 (``ms`` from graph replay), launches on that route;
 each entry's ``ops_peak`` names the peak its operations bound uses and
 ``timing`` how its ``ms`` was taken; K1's and K2's ``mesh_launches``
-count their launches on phase 5i's bucket under the mesh), the ``nvidia-smi`` line, and last
+count their launches on phase 5i's bucket under the mesh and
+``parity_launches`` on phase 5j's exported zoo), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero without the ``ok`` line. Without a CUDA card, or without the
 rest of the repository beside it, it exits non-zero at once.
@@ -401,6 +424,17 @@ ACOUSTIC_EVAL_BATCH = 2
 OBSERVED_FRAMES = 32    # the observed engine step's synthetic batch
 MESH_STEP_TOL = 1e-5    # engine step under the mesh vs without, where an op
                         # on the path has no deterministic implementation
+# phase 5j, the parity harnesses at full width and cut steps; the
+# prosody predictor at its default 4,000: its voiced f0 r passes random
+# weights' only after about 1,500 steps (-0.03 against 0.10 at 200 on the
+# H100; the reference's own CPU run reads 0.074 against 0.075 at 500)
+PARITY_STEPS = {"refenc": dict(steps=100), "prosody": dict(steps=4000),
+                "acoustic": dict(steps=100),
+                "refiner": dict(steps=50, acoustic_steps=50),
+                "vocoder": dict(steps=20), "diarizer": dict(train_steps=50)}
+PARITY_E2E_STEPS = dict(acoustic_steps=50, refiner_steps=50, vocoder_steps=20)
+DISC_PARAMS = 28_631_892   # eval_results/parity.json "vocoder" at _tts_cfg()
+RULE_MIN_ACC, RULE_MAX_ECE, RULE_COUNT = 0.8, 0.15, 31
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -3035,6 +3069,165 @@ def parallel_phase(seed: int, srv, reqs, wavs):
     return fields, launches
 
 
+def missing_keys(ref, got, path=""):
+    """The keys of ``ref`` (nested dicts) that ``got`` lacks, but the two
+    the CLI adds to a record (``cli_args``, ``vocoder_overrides``)."""
+    out = []
+    for k, v in ref.items():
+        if k in ("cli_args", "vocoder_overrides"):
+            continue
+        if k not in got:
+            out.append(path + k)
+        elif isinstance(v, dict) and isinstance(got[k], dict):
+            out += missing_keys(v, got[k], f"{path}{k}.")
+    return out
+
+
+def not_finite(x, path=""):
+    """The paths of the numbers in ``x`` (nested dicts and lists) that are
+    not finite."""
+    if isinstance(x, dict):
+        return [p for k, v in x.items() for p in not_finite(v, f"{path}{k}.")]
+    if isinstance(x, list):
+        return [p for i, v in enumerate(x) for p in not_finite(v, f"{path}{i}.")]
+    if isinstance(x, (int, float)) and not isinstance(x, bool):
+        return [] if math.isfinite(x) else [path.rstrip(".")]
+    return []
+
+
+def parity_phase(seed: int, workdir: Path):
+    """Phase 5j (see the module docstring). Returns (its fields, the kernel
+    launches of the exported zoo's request)."""
+    import numpy as np
+    import torch
+    from ttsx_torch import ops
+    from ttsx_torch.eval.parity_aux import EXPERIMENTS
+    from ttsx_torch.eval.parity_e2e import e2e_parity
+    from ttsx_torch.eval.record_baseline import record
+    from ttsx_torch.eval.rule_calibration import rule_stability, tier_accuracy
+    from ttsx_torch.serve import SynthesisServer
+    from ttsx_torch.zoo import DEFAULT_ZOO, serve_from_zoo, zoo_info
+    refs = json.loads((DEFAULT_ZOO.parent / "parity.json").read_text())
+    refs["diarizer"] = json.loads(
+        (DEFAULT_ZOO.parent / "parity_diar.json").read_text())["diarizer"]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    recs, secs = {}, {}
+    # deterministic algorithms: the predictor's training is chaotic, and
+    # the card's atomic reductions alone moved its f0 r from 0.14 to 0.93
+    # between runs of one seed; with them a run of one seed is repeatable
+    with deterministic_ops() as caught:
+        for name, kw in PARITY_STEPS.items():
+            t1 = time.time()
+            if name == "diarizer":
+                kw = dict(kw, out_dir=str(workdir))
+            r = EXPERIMENTS[name](**kw, device="cuda")
+            recs[name] = {k: v for k, v in r.items() if not k.startswith("_")}
+            secs[name] = round(time.time() - t1, 3)
+            print(json.dumps({"parity_record": name, **recs[name]}),
+                  flush=True)
+            missing = missing_keys(refs[name], recs[name])
+            bad = not_finite(recs[name])
+            if missing or bad:
+                fail(f"parity {name}: missing the reference's keys "
+                     f"{missing}, not finite {bad}")
+    r = recs
+    gates = {
+        "refenc_eer_below_random": r["refenc"]["eer"]
+        < r["refenc"]["eer_random_weights"],
+        "acoustic_mcd_below_random": r["acoustic"]["mcd_db"]
+        < r["acoustic"]["mcd_random_weights_db"],
+        "prosody_f0_r_above_random": r["prosody"]["f0_pearson_voiced"]
+        > r["prosody"]["f0_pearson_voiced_random_weights"],
+        "vocoder_stable": r["vocoder"]["stable"],
+        "disc_params": r["vocoder"]["disc_params"] == DISC_PARAMS}
+    if not all(gates.values()):
+        fail(f"parity gates {gates}")
+
+    t1 = time.time()
+    zoo = workdir / "zoo"
+    overrides = zoo_info().get("vocoder_overrides")
+    e2e = e2e_parity(**PARITY_E2E_STEPS, zoo_dir=str(zoo),
+                     vocoder_overrides=overrides, device="cuda")
+    secs["e2e"] = round(time.time() - t1, 3)
+    print(json.dumps({"parity_record": "e2e", **e2e}), flush=True)
+    bad = not_finite({k: e2e[k] for k in ("text_to_wav", "text_to_wav_ema",
+                                          "text_to_wav_sde_ema")})
+    if bad:
+        fail(f"e2e readouts not finite: {bad}")
+    harness_launches = ops.launch_counts()
+    if any(harness_launches.values()):
+        fail(f"the parity harnesses launched kernels: {harness_launches}")
+
+    # the exported zoo through K1 and K2, then on the plain path
+    srv = serve_from_zoo(str(zoo), device="cuda", bf16=False, max_batch=1,
+                         frames=FRAMES)
+    if not (srv.cfg.vocoder.use_pallas_upsample
+            and srv.cfg.vocoder.use_pallas_resblock_stack):
+        fail("the exported zoo's server does not run the kernels")
+    reqs = requests(srv.cfg, seed)[:1]
+    wavs, launches, serve_s = served(srv, reqs, "parity zoo")
+    if launches != SERVE_LAUNCHES:
+        fail(f"launches serving the exported zoo {launches}, want "
+             f"{SERVE_LAUNCHES}")
+    plain = SynthesisServer(srv.pipe.with_vocoder_kernels(False),
+                            device="cuda", max_batch=1, frames=FRAMES,
+                            bf16=False, scale_stats=srv.scale_stats.cpu())
+    ops.reset_launches()
+    wavs_plain = plain.serve_batch(reqs)
+    if any(ops.launch_counts().values()):
+        fail("the plain path launched a kernel")
+    wav_err = float(np.abs(wavs[0] - wavs_plain[0]).max())
+    if wav_err > WAV_TOL:
+        fail(f"the exported zoo through K1 and K2 differs from plain by "
+             f"{wav_err}")
+    del srv, plain
+
+    t1 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    rb = record(device="cuda")
+    secs["record_baseline"] = round(time.time() - t1, 3)
+    print(json.dumps({"record_baseline": rb}), flush=True)
+    if not_finite(rb):
+        fail(f"record_baseline not finite: {rb}")
+
+    t1 = time.time()
+    acc = tier_accuracy(n_segments=120, seed=1, work_dir=str(workdir / "rc"))
+    stab = rule_stability(samples_per_rule=40, sigmas=(0.25,),
+                          max_draws=60_000)["aggregate"]
+    secs["rule_calibration"] = round(time.time() - t1, 3)
+    rules = {"group_accuracy": acc["group_accuracy"], "ece": acc["ece"],
+             **stab}
+    if not (acc["group_accuracy"] > RULE_MIN_ACC and acc["ece"] < RULE_MAX_ECE
+            and stab["rules_reachable"] == RULE_COUNT):
+        fail(f"rule calibration out of bounds: {rules}")
+    return dict(
+        steps=PARITY_STEPS, e2e_steps=PARITY_E2E_STEPS,
+        experiment_seconds=secs,
+        nondeterministic_ops=nondeterministic(caught),
+        gates=gates, readouts={
+            "refenc": {k: r["refenc"][k] for k in ("eer",
+                                                    "eer_random_weights")},
+            "acoustic": {k: r["acoustic"][k] for k in (
+                "mcd_db", "mcd_random_weights_db", "final_loss")},
+            "refiner": {lv: v["mcd_db"] for lv, v in
+                        r["refiner"]["levels"].items()},
+            "prosody": {k: r["prosody"][k] for k in (
+                "f0_pearson_voiced", "f0_pearson_voiced_random_weights",
+                "energy_pearson", "energy_pearson_random_weights")},
+            "vocoder": {k: r["vocoder"][k] for k in (
+                "d_loss_tail_mean", "g_loss_tail_mean", "stable",
+                "disc_params")},
+            "diarizer": {k: r["diarizer"][k]["der"] for k in ("untrained",
+                                                               "trained")},
+            "e2e": {k: e2e[k]["wav_mcd_db"] for k in (
+                "copy_synthesis", "text_to_wav", "text_to_wav_sde_ema")}},
+        harness_launches=harness_launches, zoo_launches=launches,
+        zoo_serve_s=round(serve_s, 3), zoo_wav_max_abs_err_vs_plain=wav_err,
+        wav_tolerance=WAV_TOL, zoo_peak=float(np.abs(wavs[0]).max()),
+        record_baseline=rb, rule_calibration=rules), launches
+
+
 def time_gan(voc, batch):
     """ms of the vocoder's disc_step with R1 and without and of its
     gen_step, plain and with ``remat`` (each FiLM residual block
@@ -3288,6 +3481,13 @@ def main(argv=None) -> int:
     parallel, mesh_launches = parallel_phase(args.seed, srv, reqs, wavs)
     emit("parallel", t0, **parallel)
 
+    # -- 5j. the parity harnesses at cut steps, the zoo they export served
+    # through K1 and K2, record_baseline and the rule calibration
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        parity, parity_launches = parity_phase(args.seed, Path(tmp))
+    emit("parity", t0, **parity)
+
     # -- 6. timing: K3 at each batch shape the trainer collated (the
     # largest first) and at the clip, K1 and K2 at the stage shapes of
     # batch 1 and of the serving bucket
@@ -3379,7 +3579,8 @@ def main(argv=None) -> int:
                 "bound_by"].split()[0],
             library_ms=total(name, "library_ms"),
             ops_peak="tf32x3", timing=timing,
-            mesh_launches=mesh_launches[name]))
+            mesh_launches=mesh_launches[name],
+            parity_launches=parity_launches[name]))
     kernels.append(dict(
         name="mel_frontend", route="cuda",
         source="ttsx_torch/ops/csrc/mel_frontend.cu",

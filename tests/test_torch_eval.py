@@ -150,7 +150,16 @@ def test_bench_gate_passes_and_fails(monkeypatch, capsys):
 
 
 # ------------------------------------------------------------- eval names
+EVAL_MODULES = ("parity_common", "parity", "parity_aux", "parity_refenc",
+                "parity_prosody", "parity_vocoder", "parity_e2e",
+                "parity_diar", "record_baseline", "rule_calibration")
+
+
 def test_eval_package_names_match_reference():
+    """The package's names, and each harness module's functions and
+    constants (its helpers with a leading underscore included)."""
+    import importlib
+    import inspect
     import ttsx.eval as J
     import ttsx_torch.eval as P
     renamed = {"export_stablehlo": "export_pt2", "load_stablehlo": "load_pt2"}
@@ -160,6 +169,17 @@ def test_eval_package_names_match_reference():
     for n in names:
         assert hasattr(P, renamed.get(n, n)), n
     assert P.MOS_PLACEHOLDER == J.MOS_PLACEHOLDER
+    for mod in EVAL_MODULES:
+        jm = importlib.import_module(f"ttsx.eval.{mod}")
+        pm = importlib.import_module(f"ttsx_torch.eval.{mod}")
+        own = [n for n, v in vars(jm).items() if (
+            inspect.isfunction(v) and v.__module__ == jm.__name__
+            or n.lstrip("_").isupper() and not callable(v))]
+        assert own, mod
+        for n in own:
+            assert hasattr(pm, n), f"{mod}.{n}"
+    assert set(P.parity_aux.EXPERIMENTS) == set(
+        importlib.import_module("ttsx.eval.parity_aux").EXPERIMENTS)
 
 
 # ---------------------------------------------------------- acoustic eval
@@ -305,18 +325,18 @@ def test_check_file_sizes(tmp_path):
 # ----------------------------------------------------------- console scripts
 def test_console_scripts_name_the_port():
     """Every ``ttsx-torch-*`` script imports and is callable, and each
-    reference script but ``ttsx-parity`` (its harnesses are not ported)
-    has one, at the same function of the port's module."""
+    reference script has one, at the same function of the port's
+    module."""
     import importlib
     scripts = tomllib.loads((REPO / "pyproject.toml").read_text())[
         "project"]["scripts"]
     port = {k: v for k, v in scripts.items() if k.startswith("ttsx-torch-")}
-    assert len(port) == 9
+    assert len(port) == 10
     for target in port.values():
         mod, attr = target.split(":")
         assert callable(getattr(importlib.import_module(mod), attr))
     for name, target in scripts.items():
-        if name in port or name == "ttsx-parity":
+        if name in port:
             continue
         twin = "ttsx-torch-" + name.removeprefix("ttsx-")
         assert port[twin] == target.replace("ttsx.", "ttsx_torch.", 1), name

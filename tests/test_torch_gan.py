@@ -650,14 +650,14 @@ def test_to_flax_gives_back_the_reference_tree(name, block_init):
     convs, transposed convs, spectral-normed convs)."""
     from torch_train_helpers import _init_tree, batch_of, tiny_cfg
     from ttsx.train import blocks as jblocks
-    from ttsx_torch.train.blocks import BLOCKS
+    from ttsx_torch.train.engine import BlockRegistry
     from ttsx_torch.weights import to_flax
     if name in ("acoustic", "refiner"):
         cfg = tiny_cfg()
         jcls = {"acoustic": jblocks.AcousticBlock,
                 "refiner": jblocks.RefinerBlock}[name]
         tree = _numpy(_init_tree(name, jcls(jax_cfg(cfg)), batch_of(cfg), 0))
-        module = BLOCKS[name](cfg, "cpu", 0).model
+        module = BlockRegistry.create(name, cfg, "cpu", 0).model
     else:
         cfg, _, trees, _, _ = block_init
         tree = trees[name]

@@ -14,14 +14,16 @@ reloaded on the card; a world-1 NCCL mesh (``-k parallel``): an engine
 step of the three blocks and the zoo's server under it equal to the same
 without one, K1 and K2 counted under the mesh, and the dryrun over two
 cards where there are two; the native wav loader on the card's host
-(``-k native``).
+(``-k native``); a parity experiment (``-k parity``), the speaker
+encoder's, on the card against the CPU.
 
-Each test skips without a card, but four: the stage 1 and 2 entry points
+Each test skips without a card, but five: the stage 1 and 2 entry points
 (trainers, zoo loaders, datasets and corpus features), the diarizer's
 (slicer, embedder, overlap net and screen, GNN training, controller,
-zoo loader, CLI), the observer's and the speaker encoder's console
-scripts with ``ttsx-bench`` refuse to run without a card unless the CPU
-is asked for, which runs where there is none. This file imports neither
+zoo loader, CLI), the observer's, the speaker encoder's console
+scripts with ``ttsx-bench``, and the parity harnesses (every experiment,
+``ttsx-torch-parity`` and ``record_baseline``) refuse to run without a
+card unless the CPU is asked for, which runs where there is none. This file imports neither
 JAX nor the JAX package, so on a machine without JAX it runs on its own:
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
@@ -1040,3 +1042,38 @@ def test_native_loader_on_card_host(cuda, tmp_path):
         assert loader.is_native
         w, lab = loader.next(10000)
     assert w.shape == (2, 1024) and lab.shape == (2,)
+
+
+# ------------------------------------------------------------------ parity
+def test_parity_entry_points_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA card")
+    from ttsx_torch.eval import parity_aux
+    from ttsx_torch.eval.record_baseline import record
+    for name, run in parity_aux.EXPERIMENTS.items():
+        with pytest.raises(RuntimeError, match="cuda"):
+            run()
+    out = tmp_path / "parity.json"
+    with pytest.raises(RuntimeError, match="cuda"):
+        parity_aux.main(["--exp", "vocoder", "--out", str(out)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        record()
+    assert not out.exists()
+
+
+def test_parity_refenc_on_card_and_cpu(cuda):
+    """``refenc_parity`` draws nothing but its numpy batches, so its
+    readouts on the card are the CPU's: the random-weight and trained EERs
+    within one pair's share of the pairs, the last loss within 1e-4
+    relative."""
+    from ttsx_torch.eval.parity_refenc import refenc_parity
+    kw = dict(n_speakers=4, utts_train=2, utts_eval=2, frames=32, steps=3,
+              batch=8, eval_every=1)
+    card, cpu = refenc_parity(**kw), refenc_parity(**kw, device="cpu")
+    n = cpu["eval_utts"]
+    pair = 2.0 / (n * (n - 1))
+    for k in ("eer_random_weights", "eer", "eer_final"):
+        assert abs(card[k] - cpu[k]) <= pair + 1e-9, k
+    np.testing.assert_allclose(card["final_loss"], cpu["final_loss"],
+                               rtol=1e-4)
+    assert card["steps"] == cpu["steps"] == 3

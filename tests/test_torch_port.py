@@ -40,7 +40,11 @@ assert {"ttsx_torch.pipeline.diarizer.controller",
         "ttsx_torch.parallel", "ttsx_torch.parallel.data_parallel",
         "ttsx_torch.parallel.dryrun", "ttsx_torch.parallel.spawn",
         "ttsx_torch.native",
-        "ttsx_torch.native.build"} <= set(names)
+        "ttsx_torch.native.build", "ttsx_torch.train.slim_export"} | {
+        f"ttsx_torch.eval.{m}" for m in (
+            "parity_common", "parity", "parity_aux", "parity_refenc",
+            "parity_prosody", "parity_vocoder", "parity_e2e", "parity_diar",
+            "record_baseline", "rule_calibration")} <= set(names)
 for n in names:
     importlib.import_module(n)
 import chip_smoke

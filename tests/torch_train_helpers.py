@@ -139,12 +139,12 @@ def seed_block_init(name, jblock, batch, seed):
 
 def block_pair(name, cfg, batch, seed=0):
     from ttsx.train import blocks as jblocks
-    from ttsx_torch.train.blocks import BLOCKS
+    from ttsx_torch.train.engine import BlockRegistry
     jcls = {"acoustic": jblocks.AcousticBlock,
             "refiner": jblocks.RefinerBlock}[name]
     jb = jcls(jax_cfg(cfg))
     tree = seed_block_init(name, jb, batch, seed)
-    pb = BLOCKS[name](cfg, "cpu", seed)
+    pb = BlockRegistry.create(name, cfg, "cpu", seed)
     load_flax(pb.model, tree)
     return jb, jb.init_state(jax.random.PRNGKey(seed), batch), pb, tree
 

@@ -11,7 +11,8 @@ with their plain PyTorch versions), ``dsp`` and ``data`` (the trainers'
 data paths, the prefetching wav loader, the synthetic corpora),
 ``train`` (blocks, engine and its observer hook, checkpoints, the
 stage-1/2 trainers), ``eval`` (EER, MCD, DER; timers and CI gates; the
-acoustic evaluation; ``torch.export`` programs), ``pipeline`` (the stage
+acoustic evaluation; ``torch.export`` programs; the parity harnesses,
+``record_baseline`` and the rule calibration), ``pipeline`` (the stage
 contract, the diarizer, the observer job), ``utils`` (logs, figures, the
 file-size gate), ``cli``, ``weights`` (flax tree / slim npz -> state
 dicts), ``zoo``, ``serve`` and ``streaming``. The serving surface is

@@ -370,15 +370,16 @@ def tts_cfg(levels: int = 2) -> TTSXConfig:
 
 def zoo_cfg(kernels: bool = True, vocoder_overrides: dict | None = None
             ) -> TTSXConfig:
-    """``tts_cfg()`` plus the zoo.json vocoder overrides (``scale_cond``,
-    ``lambda_energy``), with both CUDA kernel flags set to ``kernels``.
+    """``tts_cfg()`` plus a zoo.json's vocoder overrides, by default the
+    checked-in zoo's (``scale_cond``, ``lambda_energy``), with both CUDA
+    kernel flags set to ``kernels``.
 
     The flags change no parameter, so the zoo weights load either way."""
     cfg = tts_cfg()
-    ov = {"scale_cond": True, "lambda_energy": 1.0}
-    if vocoder_overrides:
-        known = {f.name for f in fields(VocoderConfig)}
-        ov.update({k: v for k, v in vocoder_overrides.items() if k in known})
+    if vocoder_overrides is None:
+        vocoder_overrides = {"scale_cond": True, "lambda_energy": 1.0}
+    known = {f.name for f in fields(VocoderConfig)}
+    ov = {k: v for k, v in vocoder_overrides.items() if k in known}
     ov.update(use_pallas_upsample=kernels, use_pallas_resblock_stack=kernels)
     return dataclasses.replace(
         cfg, vocoder=dataclasses.replace(cfg.vocoder, **ov))

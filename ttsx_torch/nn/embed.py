@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def sinusoidal_table(n_pos: int, dim: int) -> np.ndarray:
@@ -14,6 +15,19 @@ def sinusoidal_table(n_pos: int, dim: int) -> np.ndarray:
     table[:, 0::2] = np.sin(angle[:, 0::2])
     table[:, 1::2] = np.cos(angle[:, 1::2])
     return table
+
+
+class FreqPosEmbed(nn.Module):
+    """The fixed sinusoidal table [n_freq, dim] (a constant, no
+    parameter)."""
+
+    def __init__(self, n_freq: int, dim: int):
+        super().__init__()
+        self.register_buffer("table", torch.as_tensor(
+            sinusoidal_table(n_freq, dim)), persistent=False)
+
+    def forward(self) -> torch.Tensor:
+        return self.table
 
 
 def rotary_mix(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""FiLM-conditioned residual conv block (``ttsx/nn/film.py``). Dropout
-and stochastic depth act only in a training forward (``draws`` given)."""
+"""FiLM-conditioned residual conv block, ScaleNorm and stochastic depth
+(``ttsx/nn/film.py``). Dropout and stochastic depth act only in a
+training forward (``draws`` given)."""
 from __future__ import annotations
 
 import torch
@@ -21,6 +22,18 @@ class ScaleNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
         return x * (self.g / norm.clamp_min(self.eps))
+
+
+def stochastic_depth(x: torch.Tensor, p: float,
+                     draws: Draws | None) -> torch.Tensor:
+    """Per-sample drop of a residual branch: x times a Bernoulli(1 - p)
+    mask of shape [B, 1, ...] over 1 - p; x itself without ``draws`` or
+    when p <= 0."""
+    if draws is None or p <= 0.0:
+        return x
+    keep = 1.0 - p
+    mask = draws.bernoulli(keep, (x.shape[0],) + (1,) * (x.ndim - 1))
+    return x * (mask.to(x.dtype) / keep)
 
 
 class ResidualConvBlock(nn.Module):
@@ -50,8 +63,4 @@ class ResidualConvBlock(nn.Module):
         scale, shift = self.Dense_1(silu(self.Dense_0(cond))).chunk(2, -1)
         y = self.gamma * dropout(y * (1.0 + scale) + shift, self.dropout,
                                  draws)
-        if draws is not None and self.sd_prob > 0.0:
-            keep = 1.0 - self.sd_prob
-            mask = draws.bernoulli(keep, (x.shape[0], 1, 1))
-            y = y * (mask.float() / keep)
-        return x + y
+        return x + stochastic_depth(y, self.sd_prob, draws)

@@ -1,5 +1,5 @@
-"""Dual-attention transformer block and the HSF conv stack
-(``ttsx/nn/tf_block.py``)."""
+"""Dual-attention transformer block, the HSF conv stack and the harmonic
+source filter (``ttsx/nn/tf_block.py``)."""
 from __future__ import annotations
 
 import torch
@@ -45,3 +45,21 @@ class HSFLayer(nn.Module):
             if i < self.n_convs - 1:
                 x = torch.relu(x)
         return x
+
+
+class HarmonicSourceFilter(nn.Module):
+    """Harmonic (k=3) and noise (k=5) conv branches over a mel [B, T, C],
+    blended by a sigmoid gate of the harmonic branch."""
+
+    def __init__(self, channels: int = 80, filt_ch: int = 64):
+        super().__init__()
+        self.Conv1d_0 = Conv1d(channels, filt_ch, 3)
+        self.Conv1d_1 = Conv1d(filt_ch, channels, 3)
+        self.Conv1d_2 = Conv1d(channels, filt_ch, 5)
+        self.Conv1d_3 = Conv1d(filt_ch, channels, 5)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        h = self.Conv1d_1(torch.relu(self.Conv1d_0(mel)))
+        n = self.Conv1d_3(torch.relu(self.Conv1d_2(mel)))
+        gate = torch.sigmoid(h)
+        return h * gate + n * (1.0 - gate)

@@ -368,7 +368,3 @@ class VocoderBlock:
         for name, st in self.states.items():
             st.load_state_dict(state[name])
         self.stft.load_state_dict(state["stft"]["params"], strict=True)
-
-
-BLOCKS = {"acoustic": AcousticBlock, "refiner": RefinerBlock,
-          "vocoder": VocoderBlock}

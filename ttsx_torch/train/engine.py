@@ -77,7 +77,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -86,13 +86,39 @@ from ttsx_torch.core.config import TTSXConfig
 from ttsx_torch.core.device import resolve_device
 from ttsx_torch.core.mesh import shard_batch
 from ttsx_torch.train import checkpoint as ckpt
-from ttsx_torch.train.blocks import BLOCKS, as_tensors
+from ttsx_torch.train.blocks import (AcousticBlock, RefinerBlock,
+                                     VocoderBlock, as_tensors)
 from ttsx_torch.train.callbacks import Callback
 
 # TrainerState fields a checkpoint's ``extra`` carries, with the values a
 # checkpoint without them restores
 EXTRA = {"best_val": float("inf"), "noise_scale": 1.0, "l1_weight": 1.0,
          "d_loss_ema": 1.0, "g_loss_ema": 1.0, "batches": 0}
+
+
+class BlockRegistry:
+    """Name -> block factory; ``create(name, cfg, device, seed)`` builds a
+    registered block and raises ``KeyError`` on an unknown name."""
+    _registry: Dict[str, Callable] = {}
+
+    @classmethod
+    def register(cls, name: str):
+        def deco(fn):
+            cls._registry[name] = fn
+            return fn
+        return deco
+
+    @classmethod
+    def create(cls, name: str, cfg: TTSXConfig, device="cuda",
+               seed: int = 0):
+        if name not in cls._registry:
+            raise KeyError(f"unknown train block '{name}'")
+        return cls._registry[name](cfg, device, seed)
+
+
+BlockRegistry.register("acoustic")(AcousticBlock)
+BlockRegistry.register("refiner")(RefinerBlock)
+BlockRegistry.register("vocoder")(VocoderBlock)
 
 
 class TrainerState:
@@ -139,10 +165,8 @@ class UnifiedTrainer:
         self.state = TrainerState()
         self.blocks = {}
         for i, name in enumerate(blocks):
-            if name not in BLOCKS:
-                raise KeyError(f"unknown train block '{name}'")
-            self.blocks[name] = BLOCKS[name](cfg, self.device,
-                                             cfg.train.seed + i)
+            self.blocks[name] = BlockRegistry.create(name, cfg, self.device,
+                                                     cfg.train.seed + i)
         if mesh is not None:
             from ttsx_torch.parallel import replicate
             for block in self.blocks.values():
