@@ -14,7 +14,7 @@ stage-1/2 trainers), ``eval`` (EER, MCD, DER; timers and CI gates; the
 acoustic evaluation; ``torch.export`` programs; the parity harnesses,
 ``record_baseline`` and the rule calibration), ``pipeline`` (the stage
 contract, the diarizer, the observer job), ``utils`` (logs, figures, the
-file-size gate), ``cli``, ``weights`` (flax tree / slim npz -> state
+file-size gate, the spans and counters), ``cli``, ``weights`` (flax tree / slim npz -> state
 dicts), ``zoo``, ``serve`` and ``streaming``. The serving surface is
 exported here, imported on first use as in ``ttsx``. Importing the
 package loads no kernel and needs neither a card nor a compiler.

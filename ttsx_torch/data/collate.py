@@ -10,7 +10,6 @@ its plain version on the CPU) and f0 / energy
 from __future__ import annotations
 
 import threading
-import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -21,6 +20,7 @@ from ttsx_torch.core.config import AudioConfig
 from ttsx_torch.core.device import resolve_device
 from ttsx_torch.dsp.features import extract_f0_energy
 from ttsx_torch.ops.mel_frontend import mel_frontend
+from ttsx_torch.utils.spans import timed
 
 
 def bucket_length(n: int, bucket: int = 4096) -> int:
@@ -199,7 +199,15 @@ class TTSCollator:
 
     def __call__(self, items: List[Dict], epoch: int = 0,
                  batch_idx: int = 0) -> Dict:
-        t0 = time.perf_counter()
+        """The batch, with ``collate_time``: the host seconds of its
+        ``collate`` span (``ttsx_torch.utils.spans.timed``)."""
+        with timed("collate") as t:
+            out = self._collate(items, epoch, batch_idx)
+        out["collate_time"] = t.seconds
+        return out
+
+    def _collate(self, items: List[Dict], epoch: int, batch_idx: int
+                 ) -> Dict:
         rng = self._rng(epoch, batch_idx)
 
         wavs = [self._augmented_wav(it, rng) for it in items]
@@ -251,5 +259,4 @@ class TTSCollator:
             "domain_id": ids("domain_id"),
             "style_id": ids("style_id"),
             "transcripts": [it["transcript"] for it in items],
-            "collate_time": time.perf_counter() - t0,
         }

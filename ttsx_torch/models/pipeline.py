@@ -12,6 +12,7 @@ from ttsx_torch.models.acoustic import AcousticModel
 from ttsx_torch.models.refiner import ScoreSDERefiner, sde_sample
 from ttsx_torch.models.vocoder import Generator
 from ttsx_torch.nn.gst import GlobalStyleTokens
+from ttsx_torch.utils.spans import span
 
 
 class SynthesisOutput(NamedTuple):
@@ -51,18 +52,27 @@ class TTSPipeline(nn.Module):
         the given ``noise`` tensors or draws from ``generator`` (a
         generator on the device seeded 0 when neither is given, as the
         reference defaults to key 0). ``scale`` is the [B, 2*channels]
-        conditioning of scale_cond generators."""
-        ac = self.acoustic(text_emb, prosody, emotion_probs, speaker=speaker)
-        if use_sde:
-            if generator is None and noise is None:
-                generator = torch.Generator(ac.mel.device).manual_seed(0)
-            mel_ref = sde_sample(self.refiner, ac.mel, prosody, style_id,
-                                 text_emb, generator=generator, noise=noise)
-        else:
-            mel_ref = self.refiner(ac.mel, prosody, style_id, text_emb).mel_ref
-        style = self.gst(mel_ref)
-        wav = self.generator(mel_ref, prosody, style, emotion_probs,
-                             scale=scale)
+        conditioning of scale_cond generators. Each stage runs inside its
+        span: ``synth.acoustic``, ``synth.refiner``, ``synth.gst``,
+        ``synth.generator``."""
+        with span("synth.acoustic"):
+            ac = self.acoustic(text_emb, prosody, emotion_probs,
+                               speaker=speaker)
+        with span("synth.refiner"):
+            if use_sde:
+                if generator is None and noise is None:
+                    generator = torch.Generator(ac.mel.device).manual_seed(0)
+                mel_ref = sde_sample(self.refiner, ac.mel, prosody, style_id,
+                                     text_emb, generator=generator,
+                                     noise=noise)
+            else:
+                mel_ref = self.refiner(ac.mel, prosody, style_id,
+                                       text_emb).mel_ref
+        with span("synth.gst"):
+            style = self.gst(mel_ref)
+        with span("synth.generator"):
+            wav = self.generator(mel_ref, prosody, style, emotion_probs,
+                                 scale=scale)
         return SynthesisOutput(wav, ac.mel, mel_ref, ac.duration, ac.pitch)
 
     def with_vocoder_kernels(self, on: bool) -> "TTSPipeline":

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ttsx_torch.nn.layers import add_bias, is_16bit, promote_dtype
 from ttsx_torch.ops.upsample import convt_taps
+from ttsx_torch.utils.spans import span
 
 
 def same_pads(t: int, k: int, stride: int = 1, dilation: int = 1):
@@ -134,18 +135,19 @@ def spectral_normalize(w: torch.Tensor, n_iter: int = 8,
     that start cold from ``u = 1/sqrt(rows)`` on every call. ``u`` and
     ``v`` carry no gradient; the gradient flows through ``sigma = u . (W
     v)``. (Not ``torch.nn.utils.spectral_norm``, which keeps a warm random
-    ``u``.)"""
-    mat = w.reshape(-1, w.shape[-1])
-    with torch.no_grad():
-        m = mat.detach()
-        u = torch.full((m.shape[0],), m.shape[0] ** -0.5, dtype=m.dtype,
-                       device=m.device)
-        for _ in range(n_iter):
-            v = m.T @ u
-            v = v / torch.clamp_min(torch.linalg.vector_norm(v), eps)
-            u = m @ v
-            u = u / torch.clamp_min(torch.linalg.vector_norm(u), eps)
-    return w / torch.clamp_min(u @ (mat @ v), eps)
+    ``u``.) Runs inside an ``nn.spectral_normalize`` span."""
+    with span("nn.spectral_normalize"):
+        mat = w.reshape(-1, w.shape[-1])
+        with torch.no_grad():
+            m = mat.detach()
+            u = torch.full((m.shape[0],), m.shape[0] ** -0.5, dtype=m.dtype,
+                           device=m.device)
+            for _ in range(n_iter):
+                v = m.T @ u
+                v = v / torch.clamp_min(torch.linalg.vector_norm(v), eps)
+                u = m @ v
+                u = u / torch.clamp_min(torch.linalg.vector_norm(u), eps)
+        return w / torch.clamp_min(u @ (mat @ v), eps)
 
 
 class SNConv(nn.Module):

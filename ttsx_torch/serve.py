@@ -27,6 +27,13 @@ reference's default: there it compiles the pipeline as three programs
 instead of one, and eager PyTorch has no program to split, so both
 values run the same calls and give the same waveforms.
 
+Each bucket is one call: a ``serve.call`` span (its id the server's
+call number) around ``serve.pad``, ``serve.upload``, ``serve.run``,
+``serve.fetch`` (the device-to-host copy, which waits for the device)
+and ``serve.trim``, with the counters ``serve.frames_requested`` (the
+requests' frames) and ``serve.frames_run`` (``max_batch x frames``)
+(``ttsx_torch.utils.spans``; recorded only while a recorder is on).
+
 ``make_voice_transform`` re-voices a mel: the refiner on zero text, the
 target's style id, the generator with uniform emotion and the GST style
 of the target's reference mel.
@@ -43,6 +50,7 @@ import torch
 from ttsx_torch.core.device import resolve_device, set_f32_numerics
 from ttsx_torch.core.mesh import dp_rows
 from ttsx_torch.models.pipeline import SynthesisOutput, TTSPipeline
+from ttsx_torch.utils.spans import count, span
 from ttsx_torch.weights import cast_float32
 
 
@@ -96,6 +104,7 @@ class SynthesisServer:
         self.max_batch = max_batch
         self.frames = frames
         self.loudness_peak = loudness_peak
+        self.calls = 0          # buckets served: the id of a call's spans
 
     def pad_batch(self, reqs: Sequence[SynthesisRequest]):
         """Numpy (text, prosody, emotion, speaker, style_id, lens) of the
@@ -146,14 +155,27 @@ class SynthesisServer:
             for i in range(0, len(reqs), self.max_batch):
                 out.extend(self.serve_batch(reqs[i:i + self.max_batch]))
             return out
-        *arrays, lens = self.pad_batch(reqs)
-        wav = self.run(*(torch.as_tensor(a, device=self.device)
-                         for a in arrays)).cpu().numpy()
-        hop = self.cfg.vocoder.hop_length
-        outs = [wav[i, :int(lens[i]) * hop, 0] for i in range(len(reqs))]
-        if self.loudness_peak is not None:
-            outs = [w * (self.loudness_peak / max(float(np.abs(w).max()), 1e-8))
-                    for w in outs]
+        with span("serve.call", id=self.calls):
+            self.calls += 1
+            with span("serve.pad"):
+                *arrays, lens = self.pad_batch(reqs)
+            count("serve.frames_requested", int(lens.sum()))
+            count("serve.frames_run", self.max_batch * self.frames)
+            with span("serve.upload"):
+                tensors = [torch.as_tensor(a, device=self.device)
+                           for a in arrays]
+            with span("serve.run"):
+                wav = self.run(*tensors)
+            with span("serve.fetch"):
+                wav = wav.cpu().numpy()
+            with span("serve.trim"):
+                hop = self.cfg.vocoder.hop_length
+                outs = [wav[i, :int(lens[i]) * hop, 0]
+                        for i in range(len(reqs))]
+                if self.loudness_peak is not None:
+                    outs = [w * (self.loudness_peak
+                                 / max(float(np.abs(w).max()), 1e-8))
+                            for w in outs]
         return outs
 
 

@@ -49,6 +49,7 @@ from ttsx_torch.nn.init import fresh_init_
 from ttsx_torch.train import losses as L
 from ttsx_torch.train.optim import make_optimizer
 from ttsx_torch.train.state import TrainState
+from ttsx_torch.utils.spans import span
 
 _INT_KEYS = ("style_id",)
 
@@ -241,7 +242,10 @@ class VocoderBlock:
     style first. Both apply ``match_lengths`` first.
 
     The generator trains on the plain PyTorch path whatever the config's
-    kernel flags say: K1 and K2 are forward-only."""
+    kernel flags say: K1 and K2 are forward-only.
+
+    Each step runs inside its span (``ttsx_torch.utils.spans``):
+    ``gan.disc_step`` (attribute ``r1``) and ``gan.gen_step``."""
 
     PARTS = ("gen", "gst", "mpd", "msd", "mbd")
 
@@ -294,64 +298,66 @@ class VocoderBlock:
 
     def disc_step(self, batch: Dict) -> Dict:
         vc = self.vc
-        b = self._batch(batch)
-        with torch.no_grad():
-            wav_fake = self._synthesize(b)
-        wav_real = b["wav"]
         apply_r1 = self.states["mpd"].step % vc.r1_interval == 0
-        if apply_r1:
-            wav_real = wav_real.detach().requires_grad_()
-        rl1, _ = self.mpd(wav_real)
-        fl1, _ = self.mpd(wav_fake)
-        rl2, _ = self.msd(wav_real)
-        fl2, _ = self.msd(wav_fake)
-        rl3, _ = self.mbd(wav_real)
-        fl3, _ = self.mbd(wav_fake)
-        d = L.hinge_d_loss(rl1 + rl2 + rl3, fl1 + fl2 + fl3)
-        if apply_r1:
-            score = sum(l.sum() for l in rl1 + rl2)
-            r1 = 0.5 * vc.r1_gamma * L.r1_from_scores(score, wav_real)
-        else:
-            r1 = torch.zeros((), device=self.device)
-        total = d + r1
-        total.backward()
-        for name in ("mpd", "msd", "mbd"):
-            self.states[name].apply_gradients()
+        with span("gan.disc_step", r1=apply_r1):
+            b = self._batch(batch)
+            with torch.no_grad():
+                wav_fake = self._synthesize(b)
+            wav_real = b["wav"]
+            if apply_r1:
+                wav_real = wav_real.detach().requires_grad_()
+            rl1, _ = self.mpd(wav_real)
+            fl1, _ = self.mpd(wav_fake)
+            rl2, _ = self.msd(wav_real)
+            fl2, _ = self.msd(wav_fake)
+            rl3, _ = self.mbd(wav_real)
+            fl3, _ = self.mbd(wav_fake)
+            d = L.hinge_d_loss(rl1 + rl2 + rl3, fl1 + fl2 + fl3)
+            if apply_r1:
+                score = sum(l.sum() for l in rl1 + rl2)
+                r1 = 0.5 * vc.r1_gamma * L.r1_from_scores(score, wav_real)
+            else:
+                r1 = torch.zeros((), device=self.device)
+            total = d + r1
+            total.backward()
+            for name in ("mpd", "msd", "mbd"):
+                self.states[name].apply_gradients()
         return {"d_loss": d.detach(), "r1": r1.detach(),
                 "d_total": total.detach()}
 
     def gen_step(self, batch: Dict) -> Dict:
         vc = self.vc
-        b = self._batch(batch)
-        wav_real = b["wav"]
         warmup = L.adversarial_warmup(self.states["gen"].step, vc.r1_interval)
-        with frozen(self.mpd, self.msd, self.mbd):
-            wav_fake = self._synthesize(b)
-            fl, ff, rf = [], [], []
-            for disc in (self.mpd, self.msd, self.mbd):
-                logits, feats = disc(wav_fake)
-                with torch.no_grad():
-                    _, real_feats = disc(wav_real)
-                fl += logits
-                ff += feats
-                rf += real_feats
-            adv = L.hinge_g_loss(fl) * warmup
-            fm = L.feature_matching_loss(ff, rf)
-            stft = self.stft(wav_fake, wav_real)
-            g = adv + vc.lambda_fm * fm + stft
-            parts = {"adv": adv, "fm": fm, "stft": stft}
-            if vc.lambda_energy > 0.0:
-                en = L.log_rms_energy_loss(wav_fake, wav_real)
-                g = g + vc.lambda_energy * en
-                parts["energy"] = en
-            if "pitch_pred" in b:
-                p = (b["pitch_pred"] - b["pitch"]).abs().mean()
-                d = (b["duration_pred"] - b["duration"]).abs().mean()
-                g = g + vc.lambda_pitch * p + vc.lambda_dur * d
-                parts.update({"pitch": p, "dur": d})
-            g.backward()
-        self.states["gen"].apply_gradients()
-        self.states["gst"].apply_gradients()
+        with span("gan.gen_step"):
+            b = self._batch(batch)
+            wav_real = b["wav"]
+            with frozen(self.mpd, self.msd, self.mbd):
+                wav_fake = self._synthesize(b)
+                fl, ff, rf = [], [], []
+                for disc in (self.mpd, self.msd, self.mbd):
+                    logits, feats = disc(wav_fake)
+                    with torch.no_grad():
+                        _, real_feats = disc(wav_real)
+                    fl += logits
+                    ff += feats
+                    rf += real_feats
+                adv = L.hinge_g_loss(fl) * warmup
+                fm = L.feature_matching_loss(ff, rf)
+                stft = self.stft(wav_fake, wav_real)
+                g = adv + vc.lambda_fm * fm + stft
+                parts = {"adv": adv, "fm": fm, "stft": stft}
+                if vc.lambda_energy > 0.0:
+                    en = L.log_rms_energy_loss(wav_fake, wav_real)
+                    g = g + vc.lambda_energy * en
+                    parts["energy"] = en
+                if "pitch_pred" in b:
+                    p = (b["pitch_pred"] - b["pitch"]).abs().mean()
+                    d = (b["duration_pred"] - b["duration"]).abs().mean()
+                    g = g + vc.lambda_pitch * p + vc.lambda_dur * d
+                    parts.update({"pitch": p, "dur": d})
+                g.backward()
+            self.states["gen"].apply_gradients()
+            self.states["gst"].apply_gradients()
         return {"g_loss": g.detach(),
                 **{k: torch.as_tensor(v).detach() for k, v in parts.items()}}
 

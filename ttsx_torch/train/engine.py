@@ -50,6 +50,13 @@ Five departures from the reference, the first two reference defects:
   reference's ``main_train --resume`` restores into the empty state
   tree of a trainer that has not yet built its states, which raises).
 
+Each engine step is a ``train.step`` span (``ttsx_torch.utils.spans``;
+its id ``state.global_step``), whose duration is the step's
+``step_time_s`` (and ``state.step_times``), around ``train.place``,
+``train.next_batch`` (the later micro-batches pulled from the stream),
+``train.acoustic``, ``train.refiner``, ``train.gan`` (``_gan_step``) and
+``train.metrics`` (the host reads of the step's losses).
+
 An ``observer`` (``ttsx_torch.train.observer.Observer``) transforms
 each stage's batch before that stage's step, at every call site of the
 reference: each acoustic micro-batch, the refiner's and the vocoder's
@@ -76,7 +83,6 @@ others waiting in a collective.
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
@@ -89,6 +95,7 @@ from ttsx_torch.train import checkpoint as ckpt
 from ttsx_torch.train.blocks import (AcousticBlock, RefinerBlock,
                                      VocoderBlock, as_tensors)
 from ttsx_torch.train.callbacks import Callback
+from ttsx_torch.utils.spans import span, timed
 
 # TrainerState fields a checkpoint's ``extra`` carries, with the values a
 # checkpoint without them restores
@@ -178,8 +185,9 @@ class UnifiedTrainer:
     def _place(self, batch: Dict) -> Dict:
         """The batch's tensors on the engine's device; under a mesh, this
         rank's rows of them."""
-        b = as_tensors(batch, self.device)
-        return b if self.mesh is None else shard_batch(b, self.mesh)
+        with span("train.place"):
+            b = as_tensors(batch, self.device)
+            return b if self.mesh is None else shard_batch(b, self.mesh)
 
     def _global(self, metrics: Dict[str, float]) -> Dict[str, float]:
         return metrics if self.mesh is None else self.mesh.mean(metrics)
@@ -197,7 +205,15 @@ class UnifiedTrainer:
             return self._train_step(batch)
 
     def _train_step(self, batch: Dict) -> Dict:
-        t0 = time.perf_counter()
+        with timed("train.step", id=self.state.global_step) as step:
+            metrics = self._step_blocks(batch)
+        self.state.step_times.append(step.seconds)
+        metrics["step_time_s"] = step.seconds
+        for cb in self.callbacks:
+            cb.on_step_end(self, metrics)
+        return metrics
+
+    def _step_blocks(self, batch: Dict) -> Dict:
         cfg = self.cfg.train
         metrics: Dict[str, float] = {}
         b = self._place(batch)
@@ -210,38 +226,45 @@ class UnifiedTrainer:
                 micro = [self._pre_forward("acoustic", b)]
                 for _ in range(cfg.grad_accum_steps - 1):
                     try:
-                        micro.append(self._pre_forward("acoustic", self._place(
-                            next(self.train_iter))))
+                        with span("train.next_batch"):
+                            nxt = next(self.train_iter)
                     except StopIteration:
                         break
+                    micro.append(self._pre_forward("acoustic",
+                                                   self._place(nxt)))
                 taken = len(micro)
-                out = block.train_step_accum(micro)
+                with span("train.acoustic"):
+                    out = block.train_step_accum(micro)
                 mel_pred = out["mel_pred"][0]
             else:
-                out = block.train_step(self._pre_forward("acoustic", b))
+                with span("train.acoustic"):
+                    out = block.train_step(self._pre_forward("acoustic", b))
                 mel_pred = out["mel_pred"]
-            metrics.update(self._global({f"acoustic/{k}": float(v)
-                                         for k, v in out["metrics"].items()}))
+            with span("train.metrics"):
+                metrics.update(self._global({
+                    f"acoustic/{k}": float(v)
+                    for k, v in out["metrics"].items()}))
 
         if ("refiner" in self.blocks
                 and self.state.global_step % cfg.refiner_update_freq == 0):
-            out = self.blocks["refiner"].train_step(
-                self._pre_forward("refiner", b), mel_pred, self.state.noise_scale, self.state.l1_weight)
-            metrics.update(self._global({f"refiner/{k}": float(v)
-                                         for k, v in out["metrics"].items()}))
+            with span("train.refiner"):
+                out = self.blocks["refiner"].train_step(
+                    self._pre_forward("refiner", b), mel_pred,
+                    self.state.noise_scale, self.state.l1_weight)
+            with span("train.metrics"):
+                metrics.update(self._global({
+                    f"refiner/{k}": float(v)
+                    for k, v in out["metrics"].items()}))
 
         if ("vocoder" in self.blocks
                 and self.state.global_step >= cfg.vocoder_freeze_until
                 and "wav" in b):
-            metrics.update(self._gan_step(self._pre_forward("vocoder", b)))
+            with span("train.gan"):
+                metrics.update(self._gan_step(self._pre_forward("vocoder",
+                                                                b)))
 
         self.state.global_step += 1
         self.state.batches += taken
-        dt = time.perf_counter() - t0
-        self.state.step_times.append(dt)
-        metrics["step_time_s"] = dt
-        for cb in self.callbacks:
-            cb.on_step_end(self, metrics)
         return metrics
 
     def _gan_step(self, b: Dict) -> Dict:
@@ -257,8 +280,9 @@ class UnifiedTrainer:
             voc.zero_grad()
             self.state.oom_count += 1
             return {"vocoder/oom": self.state.oom_count}
-        losses = self._global({"d": float(dm["d_loss"]),
-                               "g": float(gm["g_loss"])})
+        with span("train.metrics"):
+            losses = self._global({"d": float(dm["d_loss"]),
+                                   "g": float(gm["g_loss"])})
         d_l, g_l = losses["d"], losses["g"]
         a = 0.9
         st = self.state

@@ -41,6 +41,7 @@ from torch import nn
 from ttsx_torch.core.mesh import active_mesh
 from ttsx_torch.nn.draws import Draws
 from ttsx_torch.train.optim import ClippedAdamW
+from ttsx_torch.utils.spans import span
 
 
 class TrainState:
@@ -62,16 +63,19 @@ class TrainState:
 
     @torch.no_grad()
     def apply_gradients(self) -> float:
-        """One optimizer update; returns the rate it used."""
-        average_gradients(self.module)
-        lr = self.tx.step()
-        self.module.zero_grad(set_to_none=True)
-        self.step += 1
-        if self.ema is not None:
-            d = self.ema_decay
-            for n, p in self.module.named_parameters():
-                e = self.ema[n]
-                e.copy_(d * e + (1.0 - d) * p)
+        """One optimizer update, inside an ``optim.update`` span (its
+        attribute ``module`` the module's class name); returns the rate
+        it used."""
+        with span("optim.update", module=type(self.module).__name__):
+            average_gradients(self.module)
+            lr = self.tx.step()
+            self.module.zero_grad(set_to_none=True)
+            self.step += 1
+            if self.ema is not None:
+                d = self.ema_decay
+                for n, p in self.module.named_parameters():
+                    e = self.ema[n]
+                    e.copy_(d * e + (1.0 - d) * p)
         return lr
 
     def state_dict(self) -> Dict[str, object]:

@@ -1,1 +1,2 @@
-"""Host utilities of the port: rotating logs and the artifact figures."""
+"""Host utilities of the port: rotating logs, the artifact figures, and
+the spans and counters (``spans``)."""
