@@ -35,6 +35,22 @@ Run from the root of a checkout. Phases, one JSON line each:
    bands); (4) on the frames that read only zeros (reflect padding
    included) K3 against plain within 1e-5. Both routes' distances from
    float64 are printed.
+3c. snconv: the discriminators' SNConvs that take ``ops.conv1d_same``
+   (the scale discriminators' ``SNConv_3`` and ``SNConv_4`` at
+   ``VocoderConfig()``: six shapes, found by hooks on the meta device at
+   16 wavs of 88,200 samples, the training cell's batch): forward and
+   input gradient at that batch against a float64 convolution, each
+   |error| within ``SNCONV_TOL`` of sum |w| |x| over its reduction
+   (cuDNN's float32 error beside it); an R1 discriminator step of the
+   scale discriminators on 2 wavs of 1 s, the kernel route and the plain
+   route against the plain route in float64 on the card (the kernel's
+   worst error over the hinge loss, R1 and every parameter's gradient at
+   most ``SNCONV_R1_FACTOR`` times the plain route's plus
+   ``SNCONV_R1_FLOOR``, and the kernel launched in both passes); then at
+   batch 16 each shape's ms forward and input gradient beside the plain
+   version's (``F.pad`` + ``F.conv1d``), cuDNN's (``F.conv1d`` on the
+   padded input, and its input-gradient call) and the least time (FLOPs
+   over the TF32 peak, as the benchmark's roofline readers count).
 4. serve: ``serve_from_zoo(device="cuda", bf16=False, max_batch=4,
    frames=864)`` on the checked-in zoo model serves 3 requests (864, 600,
    300 frames, made from ``--seed``): finite, non-silent waveforms of
@@ -97,7 +113,11 @@ Run from the root of a checkout. Phases, one JSON line each:
    acoustic and refiner losses, and on its first 32 frames the vocoder's
    first ``d_total`` (with R1) and ``g_loss``, on the card agree with the
    port on the CPU given the same draws (TF32 off). Step and collate
-   times and peak memory.
+   times and peak memory. Per engine step, the launches of
+   ``ops.conv1d_same`` forward and input gradient (non-zero on every step,
+   the first, with R1, included), and over the run the share of the
+   SNConvs' forward and input-gradient FLOPs that went through it
+   (``snconv.flops_kernel / snconv.flops``, at least ``SNCONV_SHARE``).
 5b. vocoder_export: ``save_vocoder_slim`` of the trained vocoder (EMA
    generator and GST); a pipeline of the trained acoustic and refiner
    models with both kernel flags on loads the export and serves one
@@ -355,7 +375,25 @@ SDE_WAV_TOL = WAV_TOL   # the same waveforms, and K5's route vs K2's;
                         # 5.6e-8 measured
 SDE_REPEATS = 3         # end-to-end SDE requests timed per mode
 SERVE_LAUNCHES = {"upsample": 4, "resblock_stack": 4, "mel_frontend": 0,
-                  "s4_scan": 0, "resblock": 0}   # one served forward
+                  "s4_scan": 0, "resblock": 0, "conv1d_same": 0,
+                  "conv1d_same_input_grad": 0}   # one served forward
+# the discriminators' wide SNConvs (ops.conv1d_same), the only kernels a
+# training run or a GAN harness launches besides K3
+SNCONV_KERNELS = ("conv1d_same", "conv1d_same_input_grad")
+# |conv1d_same - float64| over sum |w| |x| of its reduction (960-41,984
+# deep): 3xTF32 drops lo*lo (2^-22 relative) and sums 32 products on the
+# tensor cores; on an H100 at the training batch up to 1.3e-7, cuDNN's
+# float32 up to 5.0e-7
+SNCONV_TOL = 1e-6
+# R1 step against float64: the kernel route's worst error (over the hinge
+# loss, R1 and each parameter's gradient, each over its float64 norm) at
+# most this factor times the plain float32 route's worst, plus the floor.
+# Second derivatives summed in float32 set both: on an H100 over 9 seeds
+# the plain route's worst leaf read 1.5e-3 to 1.4e-2 and the kernel's at
+# most 1.0001 times it
+SNCONV_R1_FACTOR, SNCONV_R1_FLOOR = 2.0, 1e-6
+SNCONV_SHARE = 0.97      # the SNConvs' FLOPs through the kernel in training
+SNCONV_BATCH, SNCONV_SAMPLES = 16, 88_200   # the training cell's batch
 # the reference's own max |wav(bf16 server) - wav(f32 server)| on each of
 # the three requests at --seed 0 (bucket of 864 frames, both kernel flags
 # on; ttsx on the CPU, printed by tests/test_torch_zoo_slow.py::
@@ -659,6 +697,221 @@ def time_kernels(shapes, gen, dil):
             mbytes=nbytes / 1e6))
         del x, w, b, wt, xc, a
     return rows
+
+
+# ------------------------------------------------ the discriminators' SNConv
+def snconv_shapes(vc, batch: int, samples: int):
+    """{name: (Cin, Cout, k, T)} of the SNConvs that take
+    ``ops.conv1d_same`` at ``batch`` wavs of ``samples``, read by hooks on
+    the meta device."""
+    import torch
+    from ttsx_torch.models.discriminators import MultiScaleDiscriminator
+    from ttsx_torch.nn.conv import SNConv
+    msd = MultiScaleDiscriminator(vc).to("meta")
+    shapes = {}
+    for name, m in msd.named_modules():
+        if isinstance(m, SNConv) and m.fits_kernel:
+            m.register_forward_hook(
+                lambda mod, a, out, name=name: shapes.__setitem__(name, (
+                    a[0].shape[1], out.shape[1], mod.kernel_size[0],
+                    a[0].shape[2])))
+    with torch.no_grad():
+        msd(torch.empty(batch, samples, 1, device="meta"))
+    return shapes
+
+
+def snconv_f64(x, w):
+    import torch.nn.functional as F
+    p = (w.shape[-1] - 1) // 2
+    return F.conv1d(F.pad(x.double(), (p, p)), w.double())
+
+
+def snconv_inputs(cin, cout, k, T, batch, gen):
+    import torch
+    x = torch.randn(batch, cin, T, generator=gen).cuda()
+    w = (torch.randn(cout, cin, k, generator=gen) / (cin * k) ** 0.5).cuda()
+    b = torch.randn(cout, generator=gen).cuda()
+    dy = torch.randn(batch, cout, T, generator=gen).cuda()
+    return x, w, b, dy
+
+
+def check_snconv(shapes, batch: int, gen):
+    """Forward and input gradient at ``batch`` (the training cell's)
+    against float64: the worst |error| over sum |w| |x|, the kernel's and
+    cuDNN's."""
+    import torch
+    import torch.nn.functional as F
+    from ttsx_torch.ops.conv1d_same import (conv1d_same,
+                                            conv1d_same_input_grad, flipped)
+    rows = []
+    for name, (cin, cout, k, T) in shapes.items():
+        x, w, b, dy = snconv_inputs(cin, cout, k, T, batch, gen)
+        p = (k - 1) // 2
+        wt = flipped(w)
+        cases = (
+            ("forward", lambda: conv1d_same(x, w, b),
+             lambda: F.conv1d(F.pad(x, (p, p)), w, b),
+             lambda: snconv_f64(x, w) + b.double()[:, None],
+             lambda: snconv_f64(x.abs(), w.abs())),
+            ("input_grad", lambda: conv1d_same_input_grad(dy, w),
+             lambda: torch.nn.grad.conv1d_input(x.shape, w, dy, padding=p),
+             lambda: snconv_f64(dy, wt),
+             lambda: snconv_f64(dy.abs(), wt.abs())))
+        with torch.no_grad():
+            for what, got, lib, ref, den in cases:
+                den = den()
+                ref = ref()
+                # |error| / den, one f32 route at a time, in place
+                err = lambda out: float(out.double().sub_(ref).abs_()
+                                        .div_(den).max())
+                e = err(got())
+                rows.append(dict(
+                    layer=name, pass_=what, shape=[batch, cin, T, cout, k],
+                    rel_err=e, cudnn_rel_err=err(lib()),
+                    ok=e <= SNCONV_TOL))
+                del den, ref
+        del x, w, b, dy, wt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def snconv_r1_step(vc, gen):
+    """An R1 discriminator step of the scale discriminators on 2 wavs of
+    1 s: the kernel route, the plain route (each SNConv's conv forced onto
+    ``F.pad`` + ``F.conv1d``) and the plain route in float64, on the same
+    weights and wavs. Each f32 route's error in the hinge loss, R1 and
+    each parameter's gradient, over the float64 norm; the kernel's worst
+    within ``SNCONV_R1_FACTOR`` x the plain route's worst +
+    ``SNCONV_R1_FLOOR``."""
+    import copy
+    import torch
+    from ttsx_torch import ops
+    from ttsx_torch.models.discriminators import MultiScaleDiscriminator
+    from ttsx_torch.nn.conv import SNConv
+    from ttsx_torch.nn.init import fresh_init_
+    from ttsx_torch.train import losses as L
+    msd = MultiScaleDiscriminator(vc)
+    fresh_init_(msd, gen)
+    msd = msd.cuda()
+    f64 = copy.deepcopy(msd).double()   # float64 takes the plain route
+    plain = copy.deepcopy(msd)
+    for m in plain.modules():
+        if isinstance(m, SNConv):
+            m._conv = (lambda x, w, kernel, m=m: SNConv._conv(m, x, w, False))
+    real = (0.3 * torch.randn(2, vc.sr, 1, generator=gen)).cuda()
+    fake = (0.3 * torch.randn(2, vc.sr, 1, generator=gen)).cuda()
+    out = {}
+    for route, disc in (("kernel", msd), ("plain", plain), ("f64", f64)):
+        dt = torch.float64 if route == "f64" else torch.float32
+        ops.reset_launches()
+        wav = real.to(dt).requires_grad_()
+        rl, _ = disc(wav)
+        fl, _ = disc(fake.to(dt))
+        d = L.hinge_d_loss(rl, fl)
+        r1 = 0.5 * vc.r1_gamma * L.r1_from_scores(
+            sum(l.sum() for l in rl), wav)
+        (d + r1).backward()
+        out[route] = dict(
+            d=d.detach().double(), r1=r1.detach().double(),
+            launches={k: ops.launch_counts()[k] for k in SNCONV_KERNELS},
+            grads={n: p.grad.detach().double()
+                   for n, p in disc.named_parameters()})
+    ref = out["f64"]
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
+    errs = {route: {"d": rel(out[route]["d"], ref["d"]),
+                    "r1": rel(out[route]["r1"], ref["r1"]),
+                    **{n: rel(g, ref["grads"][n])
+                       for n, g in out[route]["grads"].items()}}
+            for route in ("kernel", "plain")}
+    worst = {route: max(e.values()) for route, e in errs.items()}
+    # the leaves where the kernel's error passes the plain route's, shown
+    over = {n: (e, errs["plain"][n]) for n, e in errs["kernel"].items()
+            if e > errs["plain"][n]}
+    fields = dict(
+        d=float(out["kernel"]["d"]), r1=float(out["kernel"]["r1"]),
+        r1_plain=float(out["plain"]["r1"]), r1_f64=float(ref["r1"]),
+        kernel_max_rel_err=worst["kernel"],
+        plain_max_rel_err=worst["plain"],
+        kernel_vs_plain_grad_rel=max(
+            rel(g, out["plain"]["grads"][n])
+            for n, g in out["kernel"]["grads"].items()),
+        over=over, launches=out["kernel"]["launches"],
+        plain_launches=out["plain"]["launches"],
+        factor=SNCONV_R1_FACTOR, floor=SNCONV_R1_FLOOR)
+    fields["ok"] = (worst["kernel"] <= SNCONV_R1_FACTOR * worst["plain"]
+                    + SNCONV_R1_FLOOR
+                    and all(out["kernel"]["launches"].values())
+                    and not any(out["plain"]["launches"].values())
+                    and not any(out["f64"]["launches"].values()))
+    return fields
+
+
+def time_snconv(shapes, batch: int, gen):
+    """Each shape at ``batch``: ms forward and input gradient (the kernel),
+    the plain version's, cuDNN's, and the least time (the benchmark's
+    roofline count: FLOPs over the TF32 peak) with its share."""
+    import torch
+    from ttsx_torch.ops.conv1d_same import (conv1d_same,
+                                            conv1d_same_input_grad,
+                                            conv1d_same_input_grad_plain,
+                                            conv1d_same_plain)
+    rows = []
+    for name, (cin, cout, k, T) in shapes.items():
+        x, w, b, dy = snconv_inputs(cin, cout, k, T, batch, gen)
+        p = (k - 1) // 2
+        xp = torch.nn.functional.pad(x, (p, p))
+        flops = 2.0 * batch * T * cout * cin * k
+        with torch.no_grad():
+            for what, kern, plain, lib in (
+                    ("forward", lambda: conv1d_same(x, w, b),
+                     lambda: conv1d_same_plain(x, w, b),
+                     lambda: torch.nn.functional.conv1d(xp, w, b)),
+                    ("input_grad", lambda: conv1d_same_input_grad(dy, w),
+                     lambda: conv1d_same_input_grad_plain(dy, w),
+                     lambda: torch.ops.aten.convolution_backward(
+                         dy, xp, w, None, [1], [0], [1], False, [0], 1,
+                         (True, False, False)))):
+                ms = cuda_ms(kern)
+                bound = flops / PEAK_TF32_FLOPS * 1e3
+                rows.append(dict(
+                    layer=name, pass_=what, shape=[batch, cin, T, cout, k],
+                    gflop=flops / 1e9, ms=ms, tflops=flops / ms / 1e9,
+                    plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
+                    bound_ms=bound, share=bound / ms,
+                    tf32x3_bound_ms=3 * bound))
+        del x, w, b, dy, xp
+    return rows
+
+
+def snconv_phase(seed: int):
+    """Phase 3c (see the module docstring). Returns its fields and the
+    timing rows."""
+    import torch
+    from ttsx_torch.core.config import tts_cfg
+    vc = tts_cfg().vocoder
+    gen = torch.Generator().manual_seed(seed)
+    shapes = snconv_shapes(vc, SNCONV_BATCH, SNCONV_SAMPLES)
+    if len(shapes) != 6:
+        fail(f"{len(shapes)} SNConvs take the kernel, want 6: {shapes}")
+    t1 = time.perf_counter()
+    checks = check_snconv(shapes, SNCONV_BATCH, gen)
+    check_s = time.perf_counter() - t1
+    r1 = snconv_r1_step(vc, gen)
+    torch.cuda.empty_cache()
+    rows = time_snconv(shapes, SNCONV_BATCH, gen)
+    fields = dict(shapes={n: list(v) for n, v in shapes.items()},
+                  tolerance=SNCONV_TOL, checks=checks, check_s=check_s,
+                  r1_step=r1,
+                  timing_batch=SNCONV_BATCH, timing=rows,
+                  ms_forward=sum(r["ms"] for r in rows
+                                 if r["pass_"] == "forward"),
+                  ms_input_grad=sum(r["ms"] for r in rows
+                                    if r["pass_"] == "input_grad"),
+                  library_ms_forward=sum(r["library_ms"] for r in rows
+                                         if r["pass_"] == "forward"),
+                  library_ms_input_grad=sum(r["library_ms"] for r in rows
+                                            if r["pass_"] == "input_grad"))
+    return fields, rows
 
 
 # ------------------------------------------------------------ mel frontend
@@ -1776,6 +2029,7 @@ def run_trainer(cfg, seed: int, workdir: Path):
     from ttsx_torch import ops
     from ttsx_torch.cli.main import data_streams
     from ttsx_torch.train.engine import UnifiedTrainer
+    from ttsx_torch.utils.spans import recording
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -1816,15 +2070,26 @@ def run_trainer(cfg, seed: int, workdir: Path):
     moved = lambda a, b: any(not torch.equal(x, y) for x, y in zip(a, b))
     p0, vq0 = snap(ac), rf.vq.stage_0.embed_sum.clone()
     it = trainer.train_iter
-    steps, times = [], []
-    for i in range(TRAIN_STEPS):
-        t1 = time.perf_counter()
-        steps.append(trainer.train_step(next(it)))
-        times.append((time.perf_counter() - t1) * 1e3)
-        if i == 0 and moved(p0, snap(ac)):
-            fail("the first update (lr 0) moved the acoustic weights")
-        if i == 1 and not moved(p0, snap(ac)):
-            fail("the second update left the acoustic weights as they were")
+    steps, times, snconv_launches = [], [], []
+    with recording() as rec:
+        for i in range(TRAIN_STEPS):
+            before = ops.launch_counts()
+            t1 = time.perf_counter()
+            steps.append(trainer.train_step(next(it)))
+            times.append((time.perf_counter() - t1) * 1e3)
+            snconv_launches.append({k: ops.launch_counts()[k] - before[k]
+                                    for k in SNCONV_KERNELS})
+            if i == 0 and moved(p0, snap(ac)):
+                fail("the first update (lr 0) moved the acoustic weights")
+            if i == 1 and not moved(p0, snap(ac)):
+                fail("the second update left the acoustic weights as they "
+                     "were")
+    share = (rec.counters.get("snconv.flops_kernel", 0.0)
+             / max(rec.counters.get("snconv.flops", 0.0), 1.0))
+    if share < SNCONV_SHARE or not all(all(d.values())
+                                       for d in snconv_launches):
+        fail(f"the SNConvs' kernel: {share:.4f} of their FLOPs, launches "
+             f"by step {snconv_launches}")
     vm = trainer.validate()
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1873,6 +2138,8 @@ def run_trainer(cfg, seed: int, workdir: Path):
         block_ms=spans,
         collate_ms=[c * 1e3 for c in collated],
         collate_ms_mean=float(np.mean(collated)) * 1e3,
+        snconv_launches_by_step=snconv_launches, snconv_flops_share=share,
+        snconv_flops=rec.counters.get("snconv.flops", 0.0),
         peak_mem_gb=peak, cross_device=xdev, cross_device_rtol=XDEV_RTOL,
         cross_device_ok=not bad), trainer, gan.batch
 
@@ -2058,8 +2325,10 @@ def checkpoint_phase(workdir: Path):
         step_ms=step_ms,
         checkpoint_mb=(ckdir / "timed" / STATE_FILE).stat().st_size / 1e6,
         save_ms=save_ms, restore_ms=restore_ms, launches=launches)
-    if launches != {**{k: 0 for k in launches},
-                    "mel_frontend": CKPT_STEPS + 1}:
+    if ({k: v for k, v in launches.items() if k not in SNCONV_KERNELS}
+            != {**{k: 0 for k in launches if k not in SNCONV_KERNELS},
+                "mel_frontend": CKPT_STEPS + 1}
+            or not all(launches[k] for k in SNCONV_KERNELS)):
         fail(f"launches in the checkpoint phase {launches}")
     if not fields["run_state_equal"]:
         fail(f"resumed run state {got_run} != uninterrupted {want_run}")
@@ -2914,7 +3183,9 @@ def refenc_cli_phase(seed: int, workdir: Path, embed_ms_5d: float):
     if obs.errors or obs.calls != len(stepped) or observed != stepped:
         fail(f"observer calls {observed} ({obs.errors} errors) for the "
              f"stages stepped {stepped}")
-    if any(launches.values()):
+    # the engine step under the observer hook trains the vocoder: only the
+    # discriminators' SNConv kernel may launch
+    if any(v for k, v in launches.items() if k not in SNCONV_KERNELS):
         fail(f"the refenc console scripts launched a kernel: {launches}")
     return fields
 
@@ -3156,7 +3427,7 @@ def parity_phase(seed: int, workdir: Path):
     if bad:
         fail(f"e2e readouts not finite: {bad}")
     harness_launches = ops.launch_counts()
-    if any(harness_launches.values()):
+    if any(v for k, v in harness_launches.items() if k not in SNCONV_KERNELS):
         fail(f"the parity harnesses launched kernels: {harness_launches}")
 
     # the exported zoo through K1 and K2, then on the plain path
@@ -3355,6 +3626,16 @@ def main(argv=None) -> int:
     if not mel_check["ok"]:
         fail(f"K3 fails its gate: batch {mel_check['batch']['parts']}, "
              f"clip {mel_check['clip']['parts']}")
+
+    # -- 3c. the discriminators' SNConvs on ops.conv1d_same: float64,
+    # an R1 step against the plain route, the six shapes timed
+    t0 = time.time()
+    snconv, snconv_rows = snconv_phase(args.seed)
+    emit("snconv", t0, **snconv)
+    bad = [c for c in snconv["checks"] if not c["ok"]]
+    if bad or not snconv["r1_step"]["ok"]:
+        fail(f"conv1d_same fails its gate: {bad}, R1 step "
+             f"{snconv['r1_step']}")
 
     # -- 4. serve the zoo model through the kernels, then the plain path
     t0 = time.time()
@@ -3614,6 +3895,21 @@ def main(argv=None) -> int:
             bound_ms=scale * sum(r["bound_ms"] for r in rows_),
             bound_by=max(rows_, key=lambda r: r["bound_ms"])["bound_by"].split()[0],
             library_ms=None, ops_peak=peak, timing=timing))
+    # the SNConvs' kernel at the training cell's six shapes, batch 16:
+    # one forward and one input gradient of each, summed
+    kernels.append(dict(
+        name="conv1d_same", route="cuda",
+        source="ttsx_torch/ops/csrc/conv1d_same.cu", replaces=None,
+        launches=train_launches["conv1d_same"],
+        input_grad_launches=train_launches["conv1d_same_input_grad"],
+        snconv_flops_share=train["snconv_flops_share"],
+        max_rel_err=max(c["rel_err"] for c in snconv["checks"]),
+        ms=sum(r["ms"] for r in snconv_rows),
+        plain_ms=sum(r["plain_ms"] for r in snconv_rows),
+        bound_ms=sum(r["bound_ms"] for r in snconv_rows),
+        bound_by="operations", library_ms=sum(r["library_ms"]
+                                              for r in snconv_rows),
+        ops_peak="tf32", timing="eager"))
     # K4's bound from its f32 counts alone, beside the recount
     k4_entry = next(k for k in kernels if k["name"] == "s4_scan")
     k4_entry["f32_bound_ms"] = passes * sum(r["f32_bound_ms"] for r in k4_one)

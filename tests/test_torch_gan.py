@@ -107,6 +107,54 @@ def test_discriminator_logits_and_features_match_reference(name):
             close(a, b)
 
 
+def test_the_wide_scale_convs_alone_take_the_kernel():
+    """At ``VocoderConfig()`` the shape rule of ``SNConv.fits_kernel`` (1-D,
+    stride 1, odd k, at least 64 channels in and out, multiples of 4) picks
+    exactly ``SNConv_3`` and ``SNConv_4`` of each scale discriminator: 6 of
+    the 63 ``SNConv``s, read from the modules' shapes alone; a width that
+    is no multiple of 4, in or out, keeps cuDNN."""
+    from ttsx_torch.core.config import VocoderConfig
+    from ttsx_torch.models import discriminators as pd
+    from ttsx_torch.nn.conv import SNConv
+    vc = VocoderConfig()
+    picked, n = [], 0
+    for name, cls in (("mpd", pd.MultiPeriodDiscriminator),
+                      ("msd", pd.MultiScaleDiscriminator),
+                      ("mbd", pd.MultiBandDiscriminator)):
+        for sub, m in cls(vc).named_modules():
+            if isinstance(m, SNConv):
+                n += 1
+                if m.fits_kernel:
+                    picked.append(f"{name}.{sub}")
+    assert n == 63
+    assert sorted(picked) == [f"msd.scale_{i}.SNConv_{j}"
+                              for i in range(3) for j in (3, 4)]
+    assert SNConv(64, 68, (15,)).fits_kernel
+    assert not SNConv(66, 128, (15,)).fits_kernel
+    assert not SNConv(128, 66, (15,)).fits_kernel
+
+
+def test_snconv_counts_its_flops_and_keeps_the_plain_path_on_the_cpu():
+    """A forward adds 2 x outputs x Cin x k FLOPs to ``snconv.flops``, twice
+    that when x will take a gradient; on the CPU none goes through the
+    kernel, and the conv equals ``F.pad`` + ``F.conv1d``."""
+    from ttsx_torch.nn.conv import SNConv, same_pads
+    from ttsx_torch.utils.spans import recording
+    conv = SNConv(64, 64, (5,))
+    x = torch.as_tensor(randn(3, 2, 64, 11))
+    with recording() as rec:
+        y = conv(x)
+        conv(x.clone().requires_grad_())
+        with torch.no_grad():
+            conv(x.clone().requires_grad_())
+    one = 2.0 * y.numel() * 64 * 5
+    assert rec.counters == {"snconv.flops": 4 * one}
+    ref = torch.nn.functional.conv1d(
+        torch.nn.functional.pad(x, same_pads(11, 5)),
+        conv.normalized_weight(), conv.bias)
+    assert conv.fits_kernel and torch.equal(y, ref)
+
+
 def test_avg_pool_counts_padding_as_flax():
     import flax.linen as fnn
     from ttsx_torch.nn.conv import avg_pool1d

@@ -1,5 +1,7 @@
 """Tests that need a CUDA card (``gpu`` marker): the CUDA kernels against
-their plain PyTorch versions (K1, K2 and K5 also on bf16 operands), the
+their plain PyTorch versions (K1, K2 and K5 also on bf16 operands; the
+discriminators' SAME convolution, forward, input gradient and R1's double
+backward, also against float64), the
 zoo served through K1 and K2 in f32 and in bf16, and K1 to K5 refusing
 to fall back when their library is missing (K1, K2, K4 and K5, which
 are forward-only, also refuse a call that needs a gradient, and a
@@ -39,6 +41,9 @@ import torch
 from ttsx_torch import ops
 from ttsx_torch.core.config import AudioConfig
 from ttsx_torch.ops import build
+from ttsx_torch.ops.conv1d_same import (ConvSame, conv1d_same,
+                                        conv1d_same_input_grad,
+                                        conv1d_same_plain)
 from ttsx_torch.ops.mel_frontend import log_mel, log_mel_plain
 from ttsx_torch.ops.resblock import film_resblock, film_resblock_plain
 from ttsx_torch.ops.resblock_stack import (film_resblock_stack,
@@ -172,6 +177,63 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
                        _randn(cuda, 8), 2)
 
 
+def _conv_f64(x, w):
+    p = (w.shape[-1] - 1) // 2
+    return torch.nn.functional.conv1d(
+        torch.nn.functional.pad(x.double(), (p, p)), w.double())
+
+
+@pytest.mark.parametrize("B,cin,T,cout,k", [
+    (2, 64, 300, 256, 15), (1, 256, 257, 1024, 41), (3, 68, 129, 100, 5),
+    (2, 72, 301, 64, 3), (1, 8, 50, 16, 7), (1, 64, 200, 128, 1)])
+def test_conv1d_same_kernel_f32_accurate(cuda, B, cin, T, cout, k):
+    """Forward and input gradient against float64, each |error| within
+    1e-6 of sum |w| |x| over its reduction (3xTF32 drops lo*lo, 2^-22
+    relative, and sums 32 products on the tensor cores: about 1e-7
+    measured; cuDNN's float32 reads up to 4.8e-7), and one launch each."""
+    g = torch.Generator(device="cuda").manual_seed(k)
+    x = torch.randn(B, cin, T, device="cuda", generator=g)
+    w = torch.randn(cout, cin, k, device="cuda", generator=g) / (cin * k) ** 0.5
+    b = torch.randn(cout, device="cuda", generator=g)
+    dy = torch.randn(B, cout, T, device="cuda", generator=g)
+    before = (conv1d_same.launches, conv1d_same_input_grad.launches)
+    y, dx = conv1d_same(x, w, b), conv1d_same_input_grad(dy, w)
+    assert (conv1d_same.launches, conv1d_same_input_grad.launches) == (
+        before[0] + 1, before[1] + 1)
+    wt = w.transpose(0, 1).flip(-1)
+    for got, ref, den in (
+            (y, _conv_f64(x, w) + b.double()[:, None],
+             _conv_f64(x.abs(), w.abs())),
+            (dx, _conv_f64(dy, wt), _conv_f64(dy.abs(), wt.abs()))):
+        assert float(((got.double() - ref).abs() / den).max()) < 1e-6
+    torch.testing.assert_close(y, conv1d_same_plain(x, w, b), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_conv1d_same_r1_double_backward_on_card(cuda):
+    """R1's double backward through the Function on the card against the
+    same through ``F.conv1d``: values and gradients within 1e-4 of the
+    plain path's norm."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(2, 64, 400, device="cuda", generator=g)
+    w = (torch.randn(128, 64, 15, device="cuda", generator=g) / 31
+         ).requires_grad_()
+    b = torch.randn(128, device="cuda", generator=g).requires_grad_()
+    w2 = (torch.randn(64, 128, 41, device="cuda", generator=g) / 72
+          ).requires_grad_()
+
+    def r1(conv):
+        xr = x.clone().requires_grad_()
+        h = torch.nn.functional.leaky_relu(conv(xr, w, b), 0.2)
+        score = conv(h, w2, None).sum()
+        (gx,) = torch.autograd.grad(score, xr, create_graph=True)
+        r = gx.square().sum()
+        return (r, *torch.autograd.grad(r + score, (w, b, w2)))
+
+    for got, ref in zip(r1(ConvSame.apply), r1(conv1d_same_plain)):
+        assert float((got - ref).norm() / ref.norm()) < 1e-4
+
+
 def test_serve_from_zoo_through_kernels(cuda):
     """The zoo model on the card with both kernels: finite, non-silent
     waveforms of len * 256 samples, K1 and K2 launched 4 times each on
@@ -191,7 +253,8 @@ def test_serve_from_zoo_through_kernels(cuda):
     outs = srv.serve_batch(reqs)
     assert ops.launch_counts() == {"upsample": 4, "resblock_stack": 4,
                                    "mel_frontend": 0, "s4_scan": 0,
-                                   "resblock": 0}
+                                   "resblock": 0, "conv1d_same": 0,
+                                   "conv1d_same_input_grad": 0}
     for o, n in zip(outs, (64, 40)):
         assert o.shape == (n * 256,) and np.isfinite(o).all()
         assert float(np.abs(o).max()) > 1e-3
@@ -222,7 +285,8 @@ def test_serve_from_zoo_bf16_through_kernels(cuda):
     outs = srv.serve_batch(reqs)
     assert ops.launch_counts() == {"upsample": 4, "resblock_stack": 4,
                                    "mel_frontend": 0, "s4_scan": 0,
-                                   "resblock": 0}
+                                   "resblock": 0, "conv1d_same": 0,
+                                   "conv1d_same_input_grad": 0}
     for o, n in zip(outs, (64, 40)):
         assert o.shape == (n * 256,) and o.dtype == np.float32
         assert np.isfinite(o).all() and float(np.abs(o).max()) > 1e-3
@@ -1010,7 +1074,8 @@ def test_parallel_world1_engine_and_server_equal_meshless(nccl_world1):
     outs = meshed.serve_batch(reqs)
     assert ops.launch_counts() == {"upsample": 4, "resblock_stack": 4,
                                    "mel_frontend": 0, "s4_scan": 0,
-                                   "resblock": 0}
+                                   "resblock": 0, "conv1d_same": 0,
+                                   "conv1d_same_input_grad": 0}
     for a, b in zip(outs, srv.serve_batch(reqs)):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
 

@@ -18,7 +18,11 @@ kernel is divided by its largest singular value (``spectral_normalize``:
 8 power iterations from a cold start on every call, as the reference's,
 never torch's warm-started ``spectral_norm``), SAME padding with any
 strides; and ``avg_pool1d``, flax's SAME average pool, which counts the
-padded zeros.
+padded zeros. An ``SNConv`` whose shape fits ``ops.conv1d_same`` (1-D,
+stride 1, odd k, at least 64 channels in and out, multiples of 4) runs
+its forward and input gradient on that kernel for float32 CUDA tensors;
+every other ``SNConv``, and every one on the CPU, runs ``F.pad`` +
+``F.conv1d``.
 """
 from __future__ import annotations
 
@@ -28,8 +32,9 @@ from torch import nn
 import torch.nn.functional as F
 
 from ttsx_torch.nn.layers import add_bias, is_16bit, promote_dtype
+from ttsx_torch.ops.conv1d_same import conv1d_same
 from ttsx_torch.ops.upsample import convt_taps
-from ttsx_torch.utils.spans import span
+from ttsx_torch.utils.spans import count, span
 
 
 def same_pads(t: int, k: int, stride: int = 1, dilation: int = 1):
@@ -156,7 +161,20 @@ class SNConv(nn.Module):
     ([B, C, T] or [B, C, H, W]), the layout torch's convs take; the
     reference's channels-last maps are views of its outputs. Weight
     [Cout, Cin, *kernel_size]; the norm is taken over the flax kernel's
-    [prod(kernel_size) * Cin, Cout] matrix."""
+    [prod(kernel_size) * Cin, Cout] matrix.
+
+    ``fits_kernel``: 1-D, stride 1, k odd and at least ``KERNEL_MIN_CH``
+    channels in and out, each a multiple of 4 (the kernel copies rows of
+    w, and of its transpose, 16 bytes at a time), the shapes where a
+    tensor-core tile fills (at
+    ``VocoderConfig()`` the scale discriminators' ``SNConv_3`` and
+    ``SNConv_4``). Such a conv takes ``ops.conv1d_same`` for float32 CUDA
+    tensors. Every forward adds its FLOPs, and those of the input gradient
+    it will owe (grad mode on, x requiring a gradient), to the counter
+    ``snconv.flops``, and those through the kernel to
+    ``snconv.flops_kernel`` (``utils/spans.py``)."""
+
+    KERNEL_MIN_CH = 64
 
     def __init__(self, in_channels: int, features: int, kernel_size,
                  strides=None, n_power_iter: int = 8):
@@ -180,8 +198,29 @@ class SNConv(nn.Module):
         k = spectral_normalize(self.weight.permute(order), self.n_power_iter)
         return k.permute([int(i) for i in np.argsort(order)])
 
+    @property
+    def fits_kernel(self) -> bool:
+        cout, cin = self.weight.shape[:2]
+        return (len(self.kernel_size) == 1 and self.strides == (1,)
+                and self.kernel_size[0] % 2 == 1
+                and min(cin, cout) >= self.KERNEL_MIN_CH
+                and cin % 4 == 0 and cout % 4 == 0)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.normalized_weight()
+        kernel = (self.fits_kernel and x.is_cuda
+                  and x.dtype == w.dtype == torch.float32)
+        y = self._conv(x, w, kernel)
+        passes = 1 + (torch.is_grad_enabled() and x.requires_grad)
+        flops = passes * 2.0 * y.numel() * (w.numel() // w.shape[0])
+        count("snconv.flops", flops)
+        if kernel:
+            count("snconv.flops_kernel", flops)
+        return y
+
+    def _conv(self, x, w, kernel: bool) -> torch.Tensor:
+        if kernel:
+            return conv1d_same(x, w, self.bias)
         pads = []
         for t, k, s in zip(reversed(x.shape[2:]), reversed(self.kernel_size),
                            reversed(self.strides)):

@@ -37,6 +37,7 @@ SIGNATURES = {
     "mel_frontend": {"ttsx_mel_frontend_f32": [_P] * 7 + [_I] * 5 + [_P]},
     "s4_scan": {"ttsx_s4_scan_f32": [_P] * 5 + [_I] * 6 + [_P]},
     "resblock": {"ttsx_resblock_f32": [_P] * 8 + [_I] * 4 + [_P]},
+    "conv1d_same": {"ttsx_conv1d_same_f32": [_P] * 4 + [_I] * 5 + [_P]},
 }
 
 _LOCK = threading.Lock()
